@@ -86,7 +86,7 @@ def transition_block_plain(a, b, w, inverse: bool = False):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, tensors, w, ndim=4):
+def _check(name, tensors, w):
     ref = tensors[0]
     if not ref.is_cuda:
         raise ValueError(f"{name}: expected CPU or CUDA tensors, got "
@@ -95,10 +95,10 @@ def _check(name, tensors, w, ndim=4):
         raise ValueError(f"{name}: dtype {ref.dtype} not in {_KERNEL_DTYPES}")
     for t in tensors:
         if (t.device != ref.device or t.dtype != ref.dtype
-                or t.shape != ref.shape or t.dim() != ndim
+                or t.shape != ref.shape or t.dim() != 4
                 or not t.is_contiguous()):
             raise ValueError(
-                f"{name}: inputs must be contiguous {ndim}-d tensors of one "
+                f"{name}: inputs must be contiguous 4-d tensors of one "
                 f"shape, dtype and device; got {t.shape} {t.dtype} "
                 f"{t.device} contiguous={t.is_contiguous()}")
     flat = w["flat"]
