@@ -17,6 +17,8 @@ import torch
 
 from vstnet_tpu_torch.config import RevResNetConfig
 from vstnet_tpu_torch.ops.coupling import (
+    channel_merge,
+    channel_split,
     injective_pad,
     injective_unpad,
     pixel_shuffle,
@@ -45,8 +47,9 @@ def pack_revresnet(net, dtype=torch.float32):
 
 
 def _split(x):
-    n = x.shape[1] // 2
-    return x[:, :n].contiguous(), x[:, n:].contiguous()
+    """channel_split into the contiguous streams the kernels take."""
+    x1, x2 = channel_split(x)
+    return x1.contiguous(), x2.contiguous()
 
 
 @torch.no_grad()
@@ -70,7 +73,7 @@ def encode_fast(fast_params, x, cfg: RevResNetConfig,
             x1, x2 = fused_transition(x1, x2, w)
     for w in fast_params["reduction"]:
         x1, x2 = x2, fused_coupling(x1, x2, w)
-    x = torch.cat([x1, x2], dim=1)
+    x = channel_merge(x1, x2)
     if packed_latent:
         return x
     for _ in range(cfg.sp_steps):
@@ -97,5 +100,5 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
             x1, x2 = fused_coupling(x2, x1, w, inverse=True), x1
         else:
             x1, x2 = fused_transition(x2, x1, w, inverse=True)
-    x = injective_unpad(torch.cat([x1, x2], dim=1), cfg.inj_pad)
+    x = injective_unpad(channel_merge(x1, x2), cfg.inj_pad)
     return x.permute(0, 2, 3, 1)
