@@ -53,7 +53,7 @@ def _psnr(a, b):
 def _pair(cfg, jcfg, seed):
     params = jax.jit(lambda k: init_revresnet(k, jcfg))(
         jax.random.PRNGKey(seed))
-    net = RevResNet(cfg)
+    net = RevResNet(cfg, device="cpu")
     net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return params, net
 
@@ -91,7 +91,7 @@ def test_package_never_imports_jax():
         "from vstnet_tpu_torch.io import checkpoint\n"
         "from vstnet_tpu_torch.models.revresnet import RevResNet\n"
         "cfg = vstnet_tpu_torch.RevResNetConfig(n_blocks=(1, 1, 1))\n"
-        "net = RevResNet(cfg).init_weights(\n"
+        "net = RevResNet(cfg, device='cpu').init_weights(\n"
         "    torch.Generator().manual_seed(0))\n"
         "x = torch.rand(1, 16, 16, 3)\n"
         "assert pipeline.stylize(net, x, x).shape == x.shape\n"
@@ -251,15 +251,15 @@ def test_style_model_api(rng, tmp_path):
 
     path = tmp_path / "photo.pt"
     torch.save({"state_dict": model.net.state_dict()}, path)
-    loaded = vt.get_photo_style_model(str(path))
+    loaded = vt.get_photo_style_model(str(path), device="cpu")
     assert torch.equal(loaded.stylize(c, s), outs[0])
 
-    enc, dev = vt.get_vstnet_encoder_model(str(path))
-    dec, _ = vt.get_vstnet_decoder_model(str(path))
+    enc, dev = vt.get_vstnet_encoder_model(str(path), device="cpu")
+    dec, _ = vt.get_vstnet_decoder_model(str(path), device="cpu")
     assert dev == torch.device("cpu")
     z = enc(c)
     assert z.shape == (1, 16, 16, vt.PHOTO_CONFIG.latent_channels)
     assert float((dec(z) - c).abs().max()) < 1e-4
-    art = vt.get_artist_style_model(seed=1)
+    art = vt.get_artist_style_model(seed=1, device="cpu")
     assert art.cfg.latent_channels == 128
     assert art.stylize(c, s, fast=True).shape == c.shape

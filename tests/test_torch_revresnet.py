@@ -47,7 +47,7 @@ def pair():
     """(JAX params, port RevResNet) holding the same weights."""
     params = jax.jit(lambda k: init_revresnet(k, JSMALL))(
         jax.random.PRNGKey(0))
-    net = RevResNet(SMALL)
+    net = RevResNet(SMALL, device="cpu")
     net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return params, net
 
@@ -147,14 +147,14 @@ def test_reference_checkpoint_loads(tmp_path, rng, pair):
     for wrap in (True, False):
         path = tmp_path / f"ckpt_{wrap}.pt"
         save_torch_checkpoint(params, str(path), wrap=wrap)
-        loaded = RevResNet(SMALL)
+        loaded = RevResNet(SMALL, device="cpu")
         loaded.load_state_dict(load_revresnet(str(path)))
         assert torch.equal(loaded.encode(x), net.encode(x))
 
 
 def test_random_init_is_seeded():
-    a = RevResNet(SMALL).init_weights(torch.Generator().manual_seed(7))
-    b = RevResNet(SMALL).init_weights(torch.Generator().manual_seed(7))
+    a = RevResNet(SMALL, device="cpu").init_weights(torch.Generator().manual_seed(7))
+    b = RevResNet(SMALL, device="cpu").init_weights(torch.Generator().manual_seed(7))
     for (ka, va), (_, vb) in zip(a.state_dict().items(),
                                  b.state_dict().items()):
         assert torch.equal(va, vb), ka

@@ -1,30 +1,34 @@
 """vstnet_tpu_torch — the PyTorch/CUDA port of vstnet_tpu.
 
-The global stylization path of vstnet_tpu in PyTorch: the reversible
-RevResNet encoder/decoder, the global cWCT transfer and the video program.
-Every conv of the fast path runs in one of two hand-written CUDA kernels
-for Hopper (csrc/coupling.cu, csrc/transition.cu); on the CPU the same
-functions run their plain PyTorch versions. The package never imports jax
-or vstnet_tpu.
+Two paths of vstnet_tpu in PyTorch: global video stylization (the
+reversible RevResNet encoder/decoder, the global cWCT transfer, the video
+program) and masked, auto-seg video stylization (SegFormer-B4/B5 masks per
+frame, ADE20K label remapping, the regional cWCT against per-video style
+statistics). Five hand-written CUDA kernels for Hopper carry them
+(csrc/coupling.cu, csrc/transition.cu with a full-res and a half-res entry,
+csrc/attention.cu, csrc/dwconv.cu); on the CPU the same functions run their
+plain PyTorch versions. The package never imports jax or vstnet_tpu, and
+reads its own copies of the ADE20K tables (data/*.npy).
 
     from vstnet_tpu_torch import (
         get_vstnet_encoder_model, get_vstnet_decoder_model,
-        get_photo_style_model, get_artist_style_model,
+        get_photo_style_model, get_artist_style_model, get_segmenter,
     )
 
-The encoder/decoder factories return `(fn, device)` pairs; `fn` takes and
-returns NHWC float tensors on `device`.
+Every factory and constructor builds on the current CUDA device when no
+device is given and raises when there is none; pass device="cpu" for the
+CPU (`resolve_device`). The encoder/decoder factories return `(fn, device)`
+pairs; `fn` takes and returns NHWC float tensors on `device`.
 """
 
 __version__ = "0.1.0"
-
-import torch
 
 from vstnet_tpu_torch.config import (  # noqa: F401
     ARTISTIC_CONFIG,
     PHOTO_CONFIG,
     RevResNetConfig,
 )
+from vstnet_tpu_torch.device import resolve_device
 
 
 def _model(checkpoint, mode, device):
@@ -37,21 +41,23 @@ def _model(checkpoint, mode, device):
 
 
 def get_vstnet_encoder_model(checkpoint=None, mode: str = "photorealistic",
-                             device="cpu"):
+                             device=None):
     """(encode_fn, device). encode_fn: NHWC image in [0,1] -> latent."""
+    device = resolve_device(device)
     model = _model(checkpoint, mode, device)
-    return model.net.encode, torch.device(device)
+    return model.net.encode, device
 
 
 def get_vstnet_decoder_model(checkpoint=None, mode: str = "photorealistic",
-                             device="cpu"):
+                             device=None):
     """(decode_fn, device). decode_fn: latent -> NHWC image in [0,1]."""
+    device = resolve_device(device)
     model = _model(checkpoint, mode, device)
 
     def decode(z):
         return model.net.decode(z).clamp(0.0, 1.0)
 
-    return decode, torch.device(device)
+    return decode, device
 
 
 def get_photo_style_model(*args, **kwargs):
@@ -64,3 +70,11 @@ def get_artist_style_model(*args, **kwargs):
     from vstnet_tpu_torch.models.pipeline import create_artist_style_model
 
     return create_artist_style_model(*args, **kwargs)
+
+
+def get_segmenter(*args, **kwargs):
+    """Segmenter.load: SegFormer-B4/B5 from a checkpoint, or seeded random
+    weights when none is given, with the ADE20K relation table."""
+    from vstnet_tpu_torch.models.segformer import Segmenter
+
+    return Segmenter.load(*args, **kwargs)

@@ -1,11 +1,22 @@
-// K2: the stride-2 transition block with the pixel (un)shuffle inside.
+// K2 and K3: the stride-2 transition block, with the pixel (un)shuffle
+// inside (K2) or on streams the caller has already unshuffled (K3).
 //
-// Replaces the TPU kernel vstnet_tpu/ops/coupling_flat.py:
+// K2 replaces the TPU kernel vstnet_tpu/ops/coupling_flat.py:
 // fused_transition_full (kernel bodies _transition_kernel_full and
 // _transition_kernel_full_inv, shared _transition_core). With
 // u = pixel_unshuffle (channel (p*2 + q)*C + ci) and s = its inverse:
 //   forward  (x1, x2) full-res C ch -> (u(x2), F(x2) + u(x1)) half-res 4C
 //   inverse  (y1, y2) half-res 4C   -> (s(y2 - F(s(y1))), s(y1)) full-res
+// K3 replaces fused_transition_flat of the same file (kernel body
+// _transition_kernel_flat): the same block with every stream at half
+// resolution in the [p][q][ci] channel order,
+//   forward  (a, b) = (u(x1), u(x2)) -> F(s(b)) + a
+//   inverse  (a, b) = (y2, y1)       -> a - F(s(b))
+// one output each; the other stream of the pair passes through untouched
+// and the caller shuffles. It is the HALF instantiation of the one kernel
+// below: the conv stream is read through the inverse's index arithmetic,
+// and the add stream and the output use the half-res index. The sums and
+// their order are K2's, so K2(x1, x2) == K3(u(x1), u(x2)) bit for bit.
 // F = conv3 . ReLU . conv2 . ReLU . conv1: conv1 is 3x3 stride 2 C -> M,
 // conv2 3x3 M -> M, conv3 3x3 M -> 4C, all with reflect pad 1 and a bias.
 //
@@ -51,7 +62,7 @@ __device__ __forceinline__ float conv_in(const T* src, int inverse, int C,
   return to_f<T>(src[((size_t)ch * h + (R >> 1)) * w + (Cc >> 1)]);
 }
 
-template <typename T>
+template <typename T, bool HALF>
 __global__ void __launch_bounds__(kMaxThreads)
     transition_kernel(const T* __restrict__ a, const T* __restrict__ bsrc,
                       const float* __restrict__ wp, T* __restrict__ out0,
@@ -68,7 +79,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int H = 2 * h, W = 2 * w;
   const int C4 = 4 * C;
   const size_t frame = (size_t)C * H * W;  // == 4C * h * w
-  // forward: a = x1, b = x2 (full-res); inverse: a = y2, b = y1 (half-res)
+  // forward: a = x1, b = x2 (full-res); inverse: a = y2, b = y1 (half-res);
+  // HALF: every stream half-res, so the conv stream is always s(b)
+  const int shuffled_src = HALF ? 1 : inverse;
   const T* srcb = bsrc + (size_t)b * frame;
 
   const float* w1 = wp;
@@ -91,7 +104,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int rem = i % (kTrXH * kTrXW);
       const int R = reflect(xr0 + rem / kTrXW, H);
       const int Cc = reflect(xc0 + rem % kTrXW, W);
-      xs[i] = conv_in<T>(srcb, inverse, C, ci0 + ci, R, Cc, h, w);
+      xs[i] = conv_in<T>(srcb, shuffled_src, C, ci0 + ci, R, Cc, h, w);
     }
     __syncthreads();
     conv_auto(
@@ -134,7 +147,10 @@ __global__ void __launch_bounds__(kMaxThreads)
         const size_t half = (size_t)b * frame + ((size_t)ch * h + r) * w + c;
         const size_t full = (size_t)b * frame + ((size_t)ci * H + R) * W + Cc;
         const float f = s + __ldg(b3 + ch);
-        if (!inverse) {
+        if (HALF) {
+          const float av = to_f<T>(a[half]);
+          out1[half] = from_f<T>(inverse ? av - f : av + f);
+        } else if (!inverse) {
           out0[half] = bsrc[full];                          // u(x2)
           out1[half] = from_f<T>(to_f<T>(a[full]) + f);     // F + u(x1)
         } else {
@@ -144,7 +160,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       });
 }
 
-template <typename T>
+template <typename T, bool HALF>
 int launch_transition(const void* a, const void* b, const void* w,
                       void* out0, void* out1, int B, int C, int M, int h,
                       int wd, int inverse, cudaStream_t stream) {
@@ -154,11 +170,12 @@ int launch_transition(const void* a, const void* b, const void* w,
                                        (size_t)M * kTrBH * kTrBW);
   cudaGetLastError();  // report only what this launch does
   cudaError_t err = cudaFuncSetAttribute(
-      transition_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      transition_kernel<T, HALF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((wd + kTrTW - 1) / kTrTW, (h + kTrTH - 1) / kTrTH, B);
-  transition_kernel<T><<<grid, block_threads(smem), smem, stream>>>(
+  transition_kernel<T, HALF><<<grid, block_threads(smem), smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const float*>(w), static_cast<T*>(out0),
       static_cast<T*>(out1), C, M, h, wd, inverse);
@@ -173,9 +190,22 @@ extern "C" int vst_transition(const void* a, const void* b, const void* w,
                               void* stream) {
   if (C % 4 || M % 4 || h < 2 || wd < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? vst::launch_transition<__nv_bfloat16>(a, b, w, out0, out1, B,
-                                                     C, M, h, wd, inverse, s)
-             : vst::launch_transition<float>(a, b, w, out0, out1, B, C, M, h,
-                                             wd, inverse, s);
+  return is_bf16 ? vst::launch_transition<__nv_bfloat16, false>(
+                       a, b, w, out0, out1, B, C, M, h, wd, inverse, s)
+                 : vst::launch_transition<float, false>(
+                       a, b, w, out0, out1, B, C, M, h, wd, inverse, s);
+}
+
+// K3: a, b and out are (B, 4C, h, wd); out = F(s(b)) + a, or a - F(s(b))
+// with inverse.
+extern "C" int vst_transition_half(const void* a, const void* b,
+                                   const void* w, void* out, int B, int C,
+                                   int M, int h, int wd, int inverse,
+                                   int is_bf16, void* stream) {
+  if (C % 4 || M % 4 || h < 2 || wd < 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? vst::launch_transition<__nv_bfloat16, true>(
+                       a, b, w, nullptr, out, B, C, M, h, wd, inverse, s)
+                 : vst::launch_transition<float, true>(
+                       a, b, w, nullptr, out, B, C, M, h, wd, inverse, s);
 }

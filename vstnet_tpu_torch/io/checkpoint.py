@@ -13,6 +13,13 @@ which models/revresnet.RevResNet reproduces, so they load with a plain
     {"state_dict": ...};
   * params_from_jax(tree): the JAX package's params pytree as numpy arrays
     (HWIO weights) -> the same state dict (OIHW weights).
+
+The segmenter's checkpoints carry the reference SegFormer keys
+(`backbone.*`, `decode_head.*`), which models/segformer.SegFormer
+reproduces. Its two loaders are load_segformer(path) and
+segformer_params_from_jax(tree): the JAX package's init_segformer pytree
+(per-stage blocks stacked on a leading axis, (in, out) linear weights, HWIO
+convs) -> that state dict.
 """
 
 from __future__ import annotations
@@ -50,4 +57,79 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         _branch(out, bp, f"stack.{i}")
     for i, bp in enumerate(tree["reduction"]):
         _branch(out, bp, f"channel_reduction.block_list.{i}")
+    return out
+
+
+def load_segformer(path: str) -> Dict[str, torch.Tensor]:
+    """Read a reference-format SegFormer checkpoint into a state dict for
+    models/segformer.SegFormer; BatchNorm's num_batches_tracked, which the
+    port's frozen BatchNorm does not hold, is dropped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def _f32(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(out, p, prefix: str):
+    out[f"{prefix}.weight"] = _f32(np.asarray(p["w"]).T)       # (out, in)
+    out[f"{prefix}.bias"] = _f32(p["b"])
+
+
+def _conv(out, p, prefix: str):
+    out[f"{prefix}.weight"] = _f32(
+        np.asarray(p["w"]).transpose(3, 2, 0, 1))             # HWIO -> OIHW
+    if "b" in p:
+        out[f"{prefix}.bias"] = _f32(p["b"])
+
+
+def _ln(out, p, prefix: str):
+    out[f"{prefix}.weight"] = _f32(p["g"])
+    out[f"{prefix}.bias"] = _f32(p["b"])
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def segformer_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX params {"patch_embed": [...], "stages": [{"blocks": stacked,
+    "norm": ...}, ...], "head": ...} (numpy arrays or anything np.asarray
+    takes) -> SegFormer state dict. The stacked blocks of each stage are
+    unstacked along their leading axis."""
+    out: Dict[str, torch.Tensor] = {}
+    for s, pe in enumerate(tree["patch_embed"]):
+        _conv(out, pe["proj"], f"backbone.patch_embed{s + 1}.proj")
+        _ln(out, pe["norm"], f"backbone.patch_embed{s + 1}.norm")
+    for s, st in enumerate(tree["stages"]):
+        depth = int(np.asarray(st["blocks"]["norm1"]["g"]).shape[0])
+        for i in range(depth):
+            blk = _index(st["blocks"], i)
+            bp = f"backbone.block{s + 1}.{i}"
+            _ln(out, blk["norm1"], f"{bp}.norm1")
+            for name in ("q", "kv", "proj"):
+                _lin(out, blk["attn"][name], f"{bp}.attn.{name}")
+            if "sr" in blk["attn"]:
+                _conv(out, blk["attn"]["sr"], f"{bp}.attn.sr")
+                _ln(out, blk["attn"]["norm"], f"{bp}.attn.norm")
+            _ln(out, blk["norm2"], f"{bp}.norm2")
+            _lin(out, blk["mlp"]["fc1"], f"{bp}.mlp.fc1")
+            _conv(out, blk["mlp"]["dw"], f"{bp}.mlp.dwconv.dwconv")
+            _lin(out, blk["mlp"]["fc2"], f"{bp}.mlp.fc2")
+        _ln(out, st["norm"], f"backbone.norm{s + 1}")
+    head = tree["head"]
+    for i, lc in enumerate(head["linear_c"]):
+        _lin(out, lc, f"decode_head.linear_c{i + 1}.proj")
+    _conv(out, {"w": head["fuse"]["w"]}, "decode_head.linear_fuse.conv")
+    bn = head["fuse"]["bn"]
+    for key, name in (("g", "weight"), ("b", "bias"),
+                      ("mean", "running_mean"), ("var", "running_var")):
+        out[f"decode_head.linear_fuse.bn.{name}"] = _f32(bn[key])
+    _conv(out, head["pred"], "decode_head.linear_pred")
     return out

@@ -1,13 +1,14 @@
-"""Cholesky whitening-coloring transfer (cWCT), global form.
+"""Cholesky whitening-coloring transfer (cWCT), global and regional.
 
 Counterpart of vstnet_tpu/models/cwct.py (robust_cholesky, the global
-transfer, the precomputed style factors and their packed-latent forms).
-The whole transform is one per-sample product y = T x + b with
+transfer, the precomputed style factors and their packed-latent forms, and
+the regional transfer under semantic masks at the end of the file). The
+whole transform is one per-sample (or per-region) product y = T x + b with
 T = Ls Lc^{-1} and b = mu_s - T mu_c.
 
-Every function works on a (B, G, C, N) view of the latent: the packed NCHW
-latent (B, G*C, h, w) of encode_fast(packed_latent=True) is a free reshape
-to it, and an NHWC latent (B, H, W, C) is its G = 1 case.
+Every global function works on a (B, G, C, N) view of the latent: the
+packed NCHW latent (B, G*C, h, w) of encode_fast(packed_latent=True) is a
+free reshape to it, and an NHWC latent (B, H, W, C) is its G = 1 case.
 
 Precision: statistics, Cholesky factors and transforms are float32 with
 TF32 off, even when the latent is bf16; the apply sums in float32 and
@@ -183,3 +184,197 @@ def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT):
     ls, mu = style_factors(style_feat.float(), eps)
     return transfer_with_factors(content_feat.float(), ls, mu,
                                  eps).to(content_feat.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Regional (masked) transfer: the same transform per semantic region
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the regional part of vstnet_tpu/models/cwct.py. Pixels are
+# rows here: x (N, C) with a label per row. K is the region capacity: the
+# label list is the sorted distinct labels padded with -1 to K. The JAX
+# package scans (chunk, K, C) one-hot products; here the same sums are one
+# batched matmul per chunk of pixels, (K*C, chunk) @ (chunk, C), in float32
+# with TF32 off. A bf16 latent holds bf16 values, its one-hot products are
+# exact, and the float32 accumulation is the one the JAX package asks of
+# its bf16 contraction, so bf16 moments equal float32 moments of the same
+# values up to the order of the sums.
+
+MIN_PIXELS = 10
+MAX_RATIO_RESEARCH = 100.0
+LABEL_BUCKETS = (8, 16, 32, 64, 150)
+# pixels per matmul of the moments and the apply: bounds the (chunk, K*C)
+# float32 intermediate (128 MiB at K = C = 32)
+REGION_CHUNK = 32768
+
+
+def label_capacity(*masks) -> int:
+    """Smallest capacity bucket covering every distinct label of the given
+    masks (host side: one sync per mask)."""
+    n = 1
+    for m in masks:
+        if m is not None:
+            n = max(n, int(torch.unique(torch.as_tensor(m)).numel()))
+    for b in LABEL_BUCKETS:
+        if b >= n:
+            return b
+    return n
+
+
+def _padded_labels(mask, k: int):
+    """The first k sorted distinct labels of mask, padded with -1 (host
+    side: torch.unique syncs)."""
+    u = torch.unique(mask.reshape(-1))[:k].to(torch.int32)
+    pad = torch.full((k - u.numel(),), -1, dtype=torch.int32,
+                     device=mask.device)
+    return torch.cat([u, pad])
+
+
+def _chunks(n: int, chunk: int):
+    return [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+
+
+def region_moments(x, m, labels, chunk: int = REGION_CHUNK):
+    """Per-label raw moments of x (N, C) under labels m (N,):
+    counts (K,), sums (K, C), gram (K, C, C), float32. Raw moments, not
+    means and covariances, so that a caller can add them up over several
+    passes before stats_from_moments."""
+    n, c = x.shape
+    k = labels.shape[0]
+    cnt = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    sm = torch.zeros((k, c), dtype=torch.float32, device=x.device)
+    gm = torch.zeros((k * c, c), dtype=torch.float32, device=x.device)
+    with true_f32_matmul():
+        for lo, hi in _chunks(n, chunk):
+            xf = x[lo:hi].float()
+            w = (m[lo:hi, None] == labels[None, :]).float()      # (n, K)
+            cnt += w.sum(dim=0)
+            sm += w.t() @ xf
+            xw = (w[:, :, None] * xf[:, None, :]).reshape(hi - lo, k * c)
+            gm += xw.t() @ xf
+    return cnt, sm, gm.reshape(k, c, c)
+
+
+def stats_from_moments(cnt, sm, gm):
+    """(counts, sums, gram) -> (counts, means, covariances) with /(n - 1)
+    and the divisors clamped for empty regions. Any leading batch dims."""
+    means = sm / cnt.clamp(min=1.0)[..., None]
+    covs = (gm - cnt[..., None, None] * means[..., :, None]
+            * means[..., None, :]) / (cnt.clamp(min=2.0) - 1.0)[..., None,
+                                                                 None]
+    return cnt, means, covs
+
+
+def _region_stats(x, m, labels):
+    return stats_from_moments(*region_moments(x, m, labels))
+
+
+def region_transforms(labels, nc, mean_c, cov_c, ns, mean_s, cov_s,
+                      eps: float = EPS_DEFAULT,
+                      min_pixels: float = MIN_PIXELS,
+                      max_ratio: float = MAX_RATIO_RESEARCH):
+    """Per-label (T (K, C, C), b (K, C), valid (K,)) from per-label content
+    and style statistics: T = Ls Lc^{-1}, b = mu_s - T mu_c; a region is
+    valid when its label is real, both sides hold more than min_pixels and
+    their area ratio is bounded by max_ratio."""
+    valids = ((labels >= 0) & (nc > min_pixels) & (ns > min_pixels)
+              & (nc < max_ratio * ns) & (ns < max_ratio * nc))
+    with true_f32_matmul():
+        lc = robust_cholesky(cov_c, eps)
+        ls = robust_cholesky(cov_s, eps)
+        ts = ls @ _inv_lower(lc)
+        bs = mean_s - (ts @ mean_c[..., None])[..., 0]
+    return ts, bs, valids
+
+
+def apply_regions(x, m, labels, ts, bs, valids, chunk: int = REGION_CHUNK):
+    """y_n = T_{label(n)} x_n + b_{label(n)} for rows in valid regions;
+    rows of any other label keep their content. x (N, C); the product sums
+    in float32 over x's values and T rounded to x's dtype, and is rounded
+    once to x's dtype."""
+    n, c = x.shape
+    k = labels.shape[0]
+    t_all = ts.to(x.dtype).float().reshape(k * c, c)
+    out = torch.empty_like(x)
+    with true_f32_matmul():
+        for lo, hi in _chunks(n, chunk):
+            xc = x[lo:hi]
+            sel = (m[lo:hi, None] == labels[None, :]) & valids[None, :]
+            idx = sel.to(torch.int32).argmax(dim=1)
+            z = (xc.float() @ t_all.t()).reshape(hi - lo, k, c)
+            y = torch.take_along_dim(z, idx[:, None, None], dim=1)[:, 0]
+            y = (y + bs[idx]).to(x.dtype)
+            out[lo:hi] = torch.where(sel.any(dim=1)[:, None], y, xc)
+    return out
+
+
+def _rows(feat):
+    return feat.reshape(feat.shape[0], -1, feat.shape[-1])
+
+
+def _regional_dtype(*feats):
+    """bf16 only when every latent is bf16; float32 otherwise."""
+    if all(f.dtype == torch.bfloat16 for f in feats):
+        return torch.bfloat16
+    return torch.float32
+
+
+def transfer_masked(content_feat, style_feat, cmask, smask,
+                    eps: float = EPS_DEFAULT, max_labels: int = 32,
+                    min_pixels: int = MIN_PIXELS,
+                    max_ratio: float = MAX_RATIO_RESEARCH):
+    """Regional cWCT under semantic masks. content_feat (B, Hc, Wc, C)
+    with cmask (B, Hc, Wc) int labels >= 0, style likewise. Each region of
+    the content takes the statistics of the style's region of the same
+    label; rows whose label fails the validity rule keep their content.
+    max_labels is the region capacity K (the first K distinct labels)."""
+    dt = _regional_dtype(content_feat, style_feat)
+    xc, xs = _rows(content_feat).to(dt), _rows(style_feat).to(dt)
+    cm = cmask.reshape(cmask.shape[0], -1).to(torch.int32)
+    sm = smask.reshape(smask.shape[0], -1).to(torch.int32)
+    out = torch.empty_like(xc)
+    for i in range(xc.shape[0]):
+        labels = _padded_labels(cm[i], max_labels)
+        nc, mean_c, cov_c = _region_stats(xc[i], cm[i], labels)
+        ns, mean_s, cov_s = _region_stats(xs[i], sm[i], labels)
+        ts, bs, valids = region_transforms(
+            labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
+            float(min_pixels), max_ratio)
+        out[i] = apply_regions(xc[i], cm[i], labels, ts, bs, valids)
+    return out.reshape(content_feat.shape).to(content_feat.dtype)
+
+
+def style_region_factors(style_feat, smask, max_labels: int = 32):
+    """Per-label style statistics, computed once for a fixed style.
+
+    style_feat (1, H, W, C) latent; smask (1, H, W) int labels (already
+    self-remapped). Returns (labels (K,), ns (K,), mean_s (K, C),
+    cov_s (K, C, C)), in float32. The label set is the style's distinct
+    labels: after cross_remapping every content label lies in it."""
+    xs = _rows(style_feat)[0].float()
+    sm = smask.reshape(-1).to(torch.int32)
+    labels = _padded_labels(sm, max_labels)
+    ns, mean_s, cov_s = _region_stats(xs, sm, labels)
+    return labels, ns, mean_s, cov_s
+
+
+def transfer_masked_factored(content_feat, cmask, labels, ns, mean_s, cov_s,
+                             eps: float = EPS_DEFAULT,
+                             min_pixels: int = MIN_PIXELS,
+                             max_ratio: float = MAX_RATIO_RESEARCH):
+    """Regional cWCT against precomputed per-label style statistics
+    (style_region_factors). Equal to transfer_masked whenever every content
+    label appears in `labels`. content_feat (B, H, W, C); cmask (B, H, W);
+    the style-side tensors are shared across the batch. No host sync."""
+    xc = _rows(content_feat)
+    if xc.dtype not in (torch.float32, torch.bfloat16):
+        xc = xc.float()
+    cm = cmask.reshape(cmask.shape[0], -1).to(torch.int32)
+    out = torch.empty_like(xc)
+    for i in range(xc.shape[0]):
+        nc, mean_c, cov_c = _region_stats(xc[i], cm[i], labels)
+        ts, bs, valids = region_transforms(
+            labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
+            float(min_pixels), max_ratio)
+        out[i] = apply_regions(xc[i], cm[i], labels, ts, bs, valids)
+    return out.reshape(content_feat.shape).to(content_feat.dtype)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from vstnet_tpu_torch.config import RevResNetConfig
+from vstnet_tpu_torch.device import resolve_device
 from vstnet_tpu_torch.ops.coupling import (
     channel_merge,
     channel_split,
@@ -40,8 +41,9 @@ class ResidualBlock(nn.Module):
     conv, ReLU, reflect pad, conv, ReLU, reflect pad, conv)."""
 
     def __init__(self, channel: int, stride: int, mult: int = 4,
-                 kernel: int = 3, device="cpu"):
+                 kernel: int = 3, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.stride = stride
         in_ch = channel if stride == 1 else channel // 4
         mid = channel // mult
@@ -68,8 +70,9 @@ class ResidualBlock(nn.Module):
 
 
 class ChannelReduction(nn.Module):
-    def __init__(self, cfg: RevResNetConfig, device="cpu"):
+    def __init__(self, cfg: RevResNetConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.block_list = nn.ModuleList(
             ResidualBlock(cfg.reduction_channels, 1, cfg.mult, cfg.kernel,
                           device=device)
@@ -95,10 +98,12 @@ def _block_inverse(y1, y2, block: ResidualBlock):
 
 class RevResNet(nn.Module):
     """Reversible encoder/decoder. Parameters start uninitialized: call
-    `init_weights(generator)` or `load_state_dict`."""
+    `init_weights(generator)` or `load_state_dict`. device=None builds on
+    the CUDA card (device.resolve_device); pass "cpu" for the CPU."""
 
-    def __init__(self, cfg: RevResNetConfig, device="cpu"):
+    def __init__(self, cfg: RevResNetConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.stack = nn.ModuleList(
             ResidualBlock(ch, st, cfg.mult, cfg.kernel, device=device)

@@ -3,12 +3,17 @@
 Counterpart of vstnet_tpu/models/revresnet_fast.py. The same math as
 models/revresnet.py, with every stride-1 block (the channel reduction's
 included) routed through `fused_coupling` (K1) and every stride-2 block
-through `fused_transition` (K2), in bf16 or float32, at any batch and any
-image size that is a multiple of 4. On the CPU the wrappers run their plain
-versions, so this module is also the CPU path.
+through `fused_transition` (K2) or `fused_transition_half` (K3), in bf16 or
+float32, at any batch and any image size that is a multiple of 4. On the
+CPU the wrappers run their plain versions, so this module is also the CPU
+path.
 
 The TPU route tables (tile pickers, batch caps, the flat layout and its
-segments) have no counterpart: the CUDA kernels take every shape.
+segments) have no counterpart: the CUDA kernels take every shape. One rule
+of them is kept, so that both packages run the same kernel on the same
+frames: a stride-2 block takes the full-resolution entry (K2) when its
+half-resolution width is a multiple of 128 and the half-resolution entry
+(K3, pixel (un)shuffle by the caller) otherwise (`_half_res_entry`).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from vstnet_tpu_torch.ops.coupling import (
 from vstnet_tpu_torch.ops.coupling_fused import (
     fused_coupling,
     fused_transition,
+    fused_transition_half,
     pack_coupling_weights,
     pack_transition_weights,
 )
@@ -44,6 +50,13 @@ def pack_revresnet(net, dtype=torch.float32):
     reduction = [pack_coupling_weights(b.weights(), dtype)
                  for b in net.channel_reduction.block_list]
     return {"stack": stack, "reduction": reduction, "dtype": dtype}
+
+
+def _half_res_entry(w_half: int) -> bool:
+    """Whether a stride-2 block whose output is w_half wide takes K3: the
+    JAX package's rule (its full-resolution entry needs a half-res width
+    that is a multiple of 128 lanes)."""
+    return w_half % 128 != 0
 
 
 def _split(x):
@@ -69,6 +82,10 @@ def encode_fast(fast_params, x, cfg: RevResNetConfig,
     for stride, w in fast_params["stack"]:
         if stride == 1:
             x1, x2 = x2, fused_coupling(x1, x2, w)
+        elif _half_res_entry(x1.shape[3] // 2):
+            x1, x2 = fused_transition_half(
+                pixel_unshuffle(x1).contiguous(),
+                pixel_unshuffle(x2).contiguous(), w)
         else:
             x1, x2 = fused_transition(x1, x2, w)
     for w in fast_params["reduction"]:
@@ -98,6 +115,10 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
     for stride, w in reversed(fast_params["stack"]):
         if stride == 1:
             x1, x2 = fused_coupling(x2, x1, w, inverse=True), x1
+        elif _half_res_entry(x1.shape[3]):
+            x1, x2 = fused_transition_half(x2, x1, w, inverse=True)
+            x1 = pixel_shuffle(x1).contiguous()
+            x2 = pixel_shuffle(x2).contiguous()
         else:
             x1, x2 = fused_transition(x2, x1, w, inverse=True)
     x = injective_unpad(channel_merge(x1, x2), cfg.inj_pad)

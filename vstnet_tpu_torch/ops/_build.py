@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface, which is loaded with ctypes. The library lives in
+`nvcc` compiles every `csrc/*.cu` to an object file, all sources at once
+in parallel processes, and links them into one shared library with a plain
+C interface, which is loaded with ctypes. The library lives in
 `vstnet_tpu_torch/_build/` (git-ignored) and is named by a hash of the
 sources and flags, so a stale build is never loaded. The build runs at
 first use, never at import: importing the package needs no CUDA toolkit.
@@ -26,16 +27,26 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# name -> argtypes; every pointer and the stream are c_void_p, ints c_int
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# name -> argtypes; every pointer and the stream are c_void_p, ints c_int,
+# element strides c_longlong
 _SIGNATURES = {
     # x1, x2, weights, out, B, C, M, H, W, inverse, is_bf16, stream
     "vst_coupling": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, weights, out0, out1, B, C, M, h, w, inverse, is_bf16, stream
     "vst_transition": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P],
+    # a, b, weights, out, B, C, M, h, w, inverse, is_bf16, stream
+    "vst_transition_half": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, B, H, N, M, D, scale, (b, h, n) strides of q, k, v, o,
+    # stream
+    "vst_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F] + [_L] * 12
+                     + [_P],
+    # x, w, bias, out, B, H, W, C, stream
+    "vst_dwconv_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -72,22 +83,31 @@ def build() -> tuple[Path, float]:
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *[str(s) for s in CSRC.glob("*.cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
+    # one nvcc per source, all started together; link under a private
+    # name, then rename: concurrent builds never load a half-written library
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [(src, os.path.join(work, src.stem + ".o"))
+                for src in sorted(CSRC.glob("*.cu"))]
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in objs]
+        failed = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+             *[obj for _, obj in objs]], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return path, time.perf_counter() - t0
 
 

@@ -1,15 +1,19 @@
-"""The coupling block (K1) and the stride-2 transition (K2) as kernels.
+"""The coupling block (K1) and the stride-2 transition (K2, K3) as kernels.
 
-Counterpart of vstnet_tpu/ops/coupling_flat.py (fused_coupling_flat and
-fused_transition_full). The kernels are CUDA C++ for Hopper in
-`csrc/coupling.cu` and `csrc/transition.cu`, built at first use by
-`ops/_build.py`. Beside each kernel is its plain PyTorch version, built
-from ops/pad_conv.py with the same rounding points.
+Counterpart of vstnet_tpu/ops/coupling_flat.py (fused_coupling_flat,
+fused_transition_full and fused_transition_flat). The kernels are CUDA C++
+for Hopper in `csrc/coupling.cu` and `csrc/transition.cu`, built at first
+use by `ops/_build.py`. Beside each kernel is its plain PyTorch version,
+built from ops/pad_conv.py with the same rounding points. K2 takes and
+returns full-resolution streams and does the pixel (un)shuffle inside; K3
+(`fused_transition_half`) is the same block on streams the caller has
+already unshuffled to half resolution.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back from one to the other.
 Each wrapper counts its kernel launches in a plain int attribute
-(`fused_coupling.launches`, `fused_transition.launches`).
+(`fused_coupling.launches`, `fused_transition.launches`,
+`fused_transition_half.launches`).
 """
 
 from __future__ import annotations
@@ -80,6 +84,18 @@ def transition_block_plain(a, b, w, inverse: bool = False):
     x2 = pixel_shuffle(b)
     fx = residual_branch_nchw(x2, w["w"], 2)
     return pixel_shuffle((a.float() - fx).to(a.dtype)), x2
+
+
+def transition_half_plain(a_u, b_u, w, inverse: bool = False):
+    """The transition on half-res unshuffled streams ([p][q][ci] channel
+    order). Forward: (u(x1), u(x2)) -> (u(x2), F(x2) + u(x1)). Inverse:
+    (y2, y1) -> (y2 - F(s(y1)), y1), still unshuffled. The same sums as
+    transition_block_plain: transition_block_plain(x1, x2) ==
+    transition_half_plain(u(x1), u(x2)) exactly."""
+    fx = residual_branch_nchw(pixel_shuffle(b_u), w["w"], 2)
+    if not inverse:
+        return b_u, (fx + a_u.float()).to(a_u.dtype)
+    return (a_u.float() - fx).to(a_u.dtype), b_u
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +193,39 @@ def fused_transition(a, b, w, inverse: bool = False):
 fused_transition.launches = 0
 
 
+def fused_transition_half(a_u, b_u, w, inverse: bool = False):
+    """The stride-2 transition on streams already unshuffled to half
+    resolution, NCHW (B, 4C, h, w) in the [p][q][ci] channel order.
+
+    Forward: a_u = u(x1), b_u = u(x2) -> (b_u, F(x2) + a_u). Inverse:
+    a_u = y2, b_u = y1 -> (y2 - F(s(y1)), y1); the caller pixel-shuffles
+    both. One stream of each pair passes through untouched. w from
+    pack_transition_weights."""
+    if b_u.device.type == "cpu":
+        return transition_half_plain(a_u, b_u, w, inverse)
+    _check("fused_transition_half", (a_u, b_u), w)
+    bsz, c4, h, wd = a_u.shape
+    c = w["cin"]
+    if c4 != 4 * c:
+        raise ValueError(f"fused_transition_half: {c4} channels, weights "
+                         f"for {4 * c}")
+    out = torch.empty_like(a_u)
+    lib = _build.load()
+    with torch.cuda.device(a_u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vst_transition_half(
+            a_u.data_ptr(), b_u.data_ptr(), w["flat"].data_ptr(),
+            out.data_ptr(), bsz, c, w["mid"], h, wd, int(inverse),
+            int(a_u.dtype == torch.bfloat16), stream)
+    _build.check(err, "fused_transition_half")
+    fused_transition_half.launches += 1
+    return (out, b_u) if inverse else (b_u, out)
+
+
+fused_transition_half.launches = 0
+
+
 def reset_launches() -> None:
     fused_coupling.launches = 0
     fused_transition.launches = 0
+    fused_transition_half.launches = 0
