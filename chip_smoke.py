@@ -13,25 +13,31 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
   3. kernels  each of the five kernels against its plain PyTorch version on
               the card, at the paths' shapes: K1 coupling and K2 transition
               (batch 2, forward and inverse, float32 and bf16, float32
-              round trip), K3 half-res transition at the 640x360 shapes
-              (the same, plus K2 == K3 on unshuffled streams bit for bit),
-              K4 attention at the SegFormer shapes and one ragged N, K5
-              depthwise conv + GELU at the four MixFFN widths.
+              round trip; K1's bf16 route at C=256 and C=64 is the
+              tensor-core kernel, checked also at sizes with tails and with
+              H or W below its tile, and inverse(forward(x)) against x), K3
+              half-res transition at the 640x360 shapes (the same, plus
+              K2 == K3 on unshuffled streams bit for bit), K4 attention at
+              the SegFormer shapes, one ragged shape and one with M = 4096,
+              K5 depthwise conv + GELU at the four MixFFN widths.
   4. global   StyleModel.random_init -> style factors from one 512x512
               style image -> make_fused_video_fn(out_u8=True) on 2 batches
-              of 4 frames, with launch counts and the fidelity gates; then
-              the interp variant and ARTISTIC_CONFIG.
+              of 4 frames in bf16 (K1 on the tensor cores) and one in
+              float32 (K1 on the CUDA cores), with launch counts and the
+              fidelity gates; then the interp variant and ARTISTIC_CONFIG.
   5. masked   Segmenter.load(None) (B4 depths) -> prepare_masked_style ->
               make_masked_fused_video_fn(out_u8=True, seg_half=True) on 2
               batches of 4 frames, with launch counts per batch (K1 60,
-              K2 4, K4 3, K5 41) and the gates: kernel-route logits against
-              the plain bf16 route's, mask agreement, bf16 kernel route
+              all on the tensor cores, K2 4, K4 3, K5 41) and the gates:
+              kernel-route logits against the plain bf16 route's, mask
+              agreement, bf16 kernel route
               against the float32 plain route on the same masks; then once
               with the segmenter at 256x256 (no K4: under the routing
               threshold) and once on 640x360 frames (K3 in place of K2).
   6. timings  each kernel against its plain version (and, for K4, against
               scaled_dot_product_attention) at batch 8 in bf16, beside its
-              bound; K2 against K3 at the 640x360 shapes; SegFormer-B4
+              bound, with the route each K1 shape took; K2 against K3 at
+              the 640x360 shapes; SegFormer-B4
               alone; both programs' frames/s and the masked program's
               stages, with CUDA events.
 
@@ -58,19 +64,31 @@ F32_TOL = 1e-4
 # so a value of h1 or h2 that lies near a bf16 rounding boundary may round
 # the other way, and the output, rounded once to bf16, may land one ulp off.
 # Two bf16 ulps (2 * 2**-7 relative) at the output's scale covers one such
-# flip in h1/h2 and one in the output rounding. The attention kernel (K4)
-# rounds its probabilities to bf16 before P.V: a flipped probability moves
-# the output by far less than an ulp of its scale, and the same two ulps
-# are allowed. The depthwise conv + GELU kernel (K5) rounds once: one ulp.
+# flip in h1/h2 and one in the output rounding. The tensor-core kernels (K1
+# in bf16 at C >= 64, K4) sum in another order than the plain versions, so
+# bit identity is not expected of them. The attention kernel (K4) rounds
+# its probabilities to bf16 before P.V: a flipped probability moves the
+# output by far less than an ulp of its scale, and the same two ulps are
+# allowed. inverse(forward(x1)) through K1 in bf16 recomputes F bit for bit,
+# so x1 comes back within the roundings of y and of x1: two ulps of y's
+# scale. The depthwise conv + GELU kernel (K5) rounds once: one ulp.
 BF16_ULPS = 2
 K5_ULPS = 1
 ROUND_TRIP_TOL = 1e-5
 # Gates of phase 5, on seeded random weights. The kernel route and the
 # plain bf16 route of the segmenter share one dtype chain, so they differ
 # by bf16 rounding flips carried through 41 blocks: the logits must agree
-# within 5 % of their largest magnitude and the masks on 99 % of the pixels.
+# within 5 % of their largest magnitude and have a cosine above 0.99 (the
+# JAX package's own measure for its attention kernel). Random weights give
+# near-tied logits over 150 classes, so a flip can change a pixel's label:
+# the masks must agree on 98 % of the pixels. Beside it the run prints how
+# well the plain bf16 route's masks agree with the float32 route's: what
+# the working dtype itself moves. (While the attention kernel summed in the
+# plain version's order the two routes were bit-identical and the mask gate
+# stood at 0.99; on the tensor cores it cannot sum in that order.)
 LOGIT_REL_TOL = 0.05
-MASK_AGREE = 0.99
+LOGIT_COSINE = 0.99
+MASK_AGREE = 0.98
 PSNR_GATE = 40.0
 
 # Published peaks of the H100 SXM (NVIDIA's data sheet): HBM3 bytes/s,
@@ -85,22 +103,36 @@ K1_SHAPES = [("stage1", 16, 512, 512, 10), ("stage2", 64, 256, 256, 9),
              ("stage3", 256, 128, 128, 9), ("reduction", 256, 128, 128, 2)]
 K2_SHAPES = [("T1", 16, 512, 512, 1), ("T2", 64, 256, 256, 1)]
 K3_SHAPES = [("T1", 16, 360, 640, 1), ("T2", 64, 180, 320, 1)]
+# (C, H, W) of the tensor-core coupling kernel's extra checks: tiles cut by
+# the image edge, H or W below the 16x16 tile, the 640x360 planes' 45x80
+K1_TAILS = [(256, 20, 36), (256, 7, 45), (256, 45, 80), (64, 40, 36),
+            (64, 9, 50), (16, 70, 33), (16, 5, 100)]
 # (name, G, N, M, launches per segment call) of the attention kernel:
 # stage 1 of 512x512 frames (G = batch), stages 1 and 2 of 1024x1024 frames
 K4_SHAPES = [("512 s1", 1, 16384, 256, 3), ("1024 s1", 1, 65536, 1024, 3),
              ("1024 s2", 2, 16384, 1024, 8)]
-# the same shapes at the batch of the masked path, and one whose N is no
-# multiple of any query tile and whose M is no multiple of the key chunk
+# stage 1 of the segmenter at 256x256 (G = batch): under the routing
+# threshold, so not on the path; timed for the record only
+K4_UNROUTED = ("256 s1", 1, 4096, 64)
+# the same shapes at the batch of the masked path, one whose N is no
+# multiple of the query tile and whose M is no multiple of 16, and one with
+# many key tiles
 K4_CHECKS = [("512 s1", 4, 16384, 256), ("1024 s1", 1, 65536, 1024),
-             ("1024 s2", 2, 16384, 1024), ("ragged", 2, 9001, 250)]
+             ("1024 s2", 2, 16384, 1024), ("ragged", 2, 9001, 250),
+             ("large M", 1, 8200, 4096)]
 # (name, hidden C, H, W, launches per segment call) of the MixFFN kernel at
 # 512x512 frames, SegFormer-B4 depths 3/8/27/3
 K5_SHAPES = [("s1", 256, 128, 128, 3), ("s2", 512, 64, 64, 8),
              ("s3", 1280, 32, 32, 27), ("s4", 2048, 16, 16, 3)]
 
+# "coupling" is the CUDA-core kernel (float32) and "coupling_mma" the
+# tensor-core kernels (bf16 at C=16, C=64 and C=256) of the one K1 wrapper,
+# fused_coupling
 KERNELS = {
     "coupling": ("vstnet_tpu_torch/csrc/coupling.cu",
                  "vstnet_tpu/ops/coupling_flat.py:523"),
+    "coupling_mma": ("vstnet_tpu_torch/csrc/coupling_mma.cu",
+                     "vstnet_tpu/ops/coupling_flat.py:523"),
     "transition": ("vstnet_tpu_torch/csrc/transition.cu",
                    "vstnet_tpu/ops/coupling_flat.py:738"),
     "transition_half": ("vstnet_tpu_torch/csrc/transition.cu",
@@ -189,10 +221,10 @@ def _branch_flops(b, c_in, mid, c_out, pixels):
     return 2.0 * 9 * (c_in * mid + mid * mid + mid * c_out) * b * pixels
 
 
-def bound_coupling(b, c, h, w, esize=2):
+def bound_coupling(b, c, h, w, esize=2, peak=PEAK_BF16):
     """K1: x1, x2 read, out written; C -> C/4 -> C/4 -> C."""
     return _bound(3.0 * b * c * h * w * esize,
-                  _branch_flops(b, c, c // 4, c, h * w))
+                  _branch_flops(b, c, c // 4, c, h * w), peak)
 
 
 def bound_transition(b, c, h, w, streams, esize=2):
@@ -229,8 +261,17 @@ def _check(label, got, ref, tol, worst=None, key=None):
         worst[key] = max(worst[key], err)
 
 
+def _k1_bf16_round_trip(cf, label, x1, x2, wp):
+    """inverse(forward(x1)) against x1 through the bf16 kernel."""
+    y = cf.fused_coupling(x1, x2, wp)
+    back = cf.fused_coupling(y, x2, wp, inverse=True)
+    torch.cuda.synchronize()
+    _check(f"{label} bf16 round trip", back, x1, _bf16_tol(y))
+
+
 def phase_kernels(cf, att, dw, device, gen):
-    """Kernel vs plain on the card; returns max bf16 error per kernel."""
+    """Kernel vs plain on the card; returns the max error per kernel, in
+    bf16 (in float32 for "coupling", the float32 route's K1 kernel)."""
     from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 
     worst = dict.fromkeys(KERNELS, 0.0)
@@ -241,18 +282,37 @@ def phase_kernels(cf, att, dw, device, gen):
             wp = cf.pack_coupling_weights(branch, dt)
             x1 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
             x2 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
+            route = cf.coupling_route(dt, c, c // 4)
+            key = "coupling_mma" if route == "mma" else "coupling"
             for inv in (False, True):
                 got = cf.fused_coupling(x1, x2, wp, inverse=inv)
                 ref = cf.coupling_block_plain(x1, x2, wp, inverse=inv)
                 torch.cuda.synchronize()
                 tol = F32_TOL if dt == torch.float32 else _bf16_tol(ref)
-                _check(f"K1 {name} C={c} {h}x{w} {_dt(dt)} "
-                       f"{'inv' if inv else 'fwd'}", got, ref, tol,
-                       worst if dt == bf else None, "coupling")
+                _check(f"K1 {name} C={c} {h}x{w} {_dt(dt)} {route} "
+                       f"{'inv' if inv else 'fwd'}", got, ref, tol, worst,
+                       key)
             if dt == torch.float32:
                 y = cf.fused_coupling(x1, x2, wp)
                 back = cf.fused_coupling(y, x2, wp, inverse=True)
                 _check(f"K1 {name} f32 round trip", back, x1, ROUND_TRIP_TOL)
+            elif route == "mma":
+                _k1_bf16_round_trip(cf, f"K1 {name} C={c}", x1, x2, wp)
+    for c, h, w in K1_TAILS:
+        wp = cf.pack_coupling_weights(
+            _rand_branch(gen, c, c // 4, c, device), bf)
+        if cf.coupling_route(bf, c, c // 4) != "mma":
+            raise AssertionError(f"K1 C={c} bf16 is not on the tensor cores")
+        x1 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
+        x2 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
+        for inv in (False, True):
+            got = cf.fused_coupling(x1, x2, wp, inverse=inv)
+            ref = cf.coupling_block_plain(x1, x2, wp, inverse=inv)
+            torch.cuda.synchronize()
+            _check(f"K1 tails C={c} {h}x{w} bf16 mma "
+                   f"{'inv' if inv else 'fwd'}", got, ref, _bf16_tol(ref),
+                   worst, "coupling_mma")
+        _k1_bf16_round_trip(cf, f"K1 tails C={c} {h}x{w}", x1, x2, wp)
     for name, c, h, w, _ in K2_SHAPES:
         branch = _rand_branch(gen, c, c, 4 * c, device)
         for dt in (torch.float32, bf):
@@ -391,21 +451,35 @@ def phase_global(ops, device, gen, total):
     batches = [_frames(gen, 4, 512, device) for _ in range(2)]
     torch.cuda.synchronize()
 
-    ops.reset_launch_counts()
-    outs = []
-    for frames in batches:
+    # the float32 program on the same frames: K1 on the CUDA cores
+    fast32 = rf.pack_revresnet(model.net, torch.float32)
+    zs32 = rf.encode_fast(fast32, style, cfg, packed_latent=True)
+    ls32, mu32 = cwct.style_factors_packed(zs32, c_lat)
+    video32 = make_fused_video_fn(cfg)
+    torch.cuda.synchronize()
+
+    def counted(fn, mma):
         before = ops.launch_counts()
-        outs.append(video(fast, frames, ls, mu))
+        out = fn()
         after = ops.launch_counts()
         d = {k: after[k] - before[k] for k in after}
-        if (d["coupling"], d["transition"]) != (60, 4):
+        if (d["coupling"], d["coupling_mma"], d["transition"]) != (
+                60, mma, 4):
             raise AssertionError(f"launches per batch {d}, want 60 coupling "
-                                 "and 4 transition (30 + 2 per encode and "
-                                 "per decode)")
+                                 f"({mma} of them on the tensor cores) and 4 "
+                                 "transition (30 + 2 per encode and per "
+                                 "decode)")
+        return out
+
+    ops.reset_launch_counts()
+    outs = [counted(lambda: video(fast, frames, ls, mu), 60)
+            for frames in batches]
+    got32 = counted(lambda: video32(fast32, batches[0], ls32, mu32), 0)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _add(total, counts)
-    print(f"global: 2 batches of 4 frames, launches {counts}")
+    print(f"global: 2 bf16 batches and 1 float32 batch of 4 frames, "
+          f"launches {counts}")
     for out in outs:
         if out.dtype != torch.uint8 or tuple(out.shape) != (4, 512, 512, 3):
             raise AssertionError(f"output {out.dtype} {tuple(out.shape)}")
@@ -423,10 +497,6 @@ def phase_global(ops, device, gen, total):
         raise AssertionError("uint8 output disagrees with the float output")
 
     # float32 kernel route vs float32 plain route
-    fast32 = rf.pack_revresnet(model.net, torch.float32)
-    zs32 = rf.encode_fast(fast32, style, cfg, packed_latent=True)
-    ls32, mu32 = cwct.style_factors_packed(zs32, c_lat)
-    got32 = make_fused_video_fn(cfg)(fast32, frames, ls32, mu32)
     err = _max_err(got32, ref)
     print(f"gate f32 kernel vs f32 plain: max abs err {err:.3e} (<= 1e-4)")
     if not err <= 1e-4:
@@ -540,7 +610,8 @@ def phase_masked(ops, model, style, device, gen, total):
                                  f"{want}")
         return out, masks
 
-    want = {"coupling": 60, "transition": 4, "transition_half": 0,
+    want = {"coupling": 60, "coupling_mma": 60, "transition": 4,
+            "transition_half": 0,
             "attention": 3, "dwconv_gelu": 41}
     ops.reset_launch_counts()
     outs = [run(video, frames, want, "masked 512x512") for frames in batches]
@@ -571,11 +642,19 @@ def phase_masked(ops, model, style, device, gen, total):
     scale = float(logits_p.abs().max())
     err = _max_err(logits, logits_p)
     agree = float((logits.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    cos = float(torch.nn.functional.cosine_similarity(
+        logits.float().flatten(), logits_p.float().flatten(), dim=0))
+    masks32 = sf.segment_logits(seg.net, frames, half=False).argmax(-1)
+    floor = float((logits_p.argmax(-1) == masks32).float().mean())
     print(f"gate segmenter kernel vs plain bf16 route: logits max abs err "
-          f"{err:.3e} at scale {scale:.3e} (<= {LOGIT_REL_TOL} of it), mask "
-          f"agreement {agree:.5f} (>= {MASK_AGREE})")
-    if not (err <= LOGIT_REL_TOL * scale and agree >= MASK_AGREE):
-        raise AssertionError(f"segmenter routes disagree: {err} {agree}")
+          f"{err:.3e} at scale {scale:.3e} (<= {LOGIT_REL_TOL} of it), "
+          f"cosine {cos:.6f} (> {LOGIT_COSINE}), mask agreement {agree:.5f} "
+          f"(>= {MASK_AGREE}; the plain bf16 route agrees with the float32 "
+          f"route on {floor:.5f})")
+    if not (err <= LOGIT_REL_TOL * scale and cos > LOGIT_COSINE
+            and agree >= MASK_AGREE):
+        raise AssertionError(f"segmenter routes disagree: {err} {cos} "
+                             f"{agree} (float32 floor {floor})")
 
     # bf16 kernel route vs float32 plain route, the kernel route's masks
     got, _ = make_masked_fused_video_fn(cfg, seg_half=True)(
@@ -615,8 +694,8 @@ def phase_masked(ops, model, style, device, gen, total):
     rf.decode_fast(fast, z, cfg)
     dec = {k: v - enc[k] for k, v in ops.launch_counts().items()}
     for what, d in (("encode", enc), ("decode", dec)):
-        if (d["coupling"], d["transition"], d["transition_half"]) != (
-                30, 0, 2):
+        if (d["coupling"], d["coupling_mma"], d["transition"],
+                d["transition_half"]) != (30, 30, 0, 2):
             raise AssertionError(f"640x360 {what}: launches {d}")
     ops.reset_launch_counts()
     out, mw = run(video, wide, dict(want, transition=0, transition_half=4),
@@ -643,17 +722,18 @@ def phase_masked(ops, model, style, device, gen, total):
 # Phase 6: timings
 # ---------------------------------------------------------------------------
 
-def _line(kernel, name, shape, tk, tp, bound, lib=None):
+def _line(kernel, name, shape, tk, tp, bound, lib=None, dtype="bf16"):
     bms, by = bound
     lib_s = "" if lib is None else f", library {lib:.3f} ms"
-    print(f"time {kernel} {name} {shape} bf16: kernel {tk:.3f} ms, plain "
+    print(f"time {kernel} {name} {shape} {dtype}: kernel {tk:.3f} ms, plain "
           f"{tp:.3f} ms{lib_s}, bound {bms:.4f} ms ({by})")
 
 
 def phase_timings(cf, att, dw, device, gen, batch=8):
     """Per-launch times at batch 8 in bf16. Returns per kernel
     {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}: the sums over
-    the launches of one encode (K1, K2 at 512x512; K3 at 640x360) or of
+    the launches of one encode (K1, by kernel, and K2 at 512x512; K3 at
+    640x360) or of
     one segment call at 512x512 (K4, K5)."""
     from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 
@@ -681,7 +761,22 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
                             lambda: cf.coupling_block_plain(x1, x2, wp))
         bound = bound_coupling(batch, c, h, w)
-        _line("coupling", name, f"C={c} {h}x{w} B={batch}", tk, tp, bound)
+        route = cf.coupling_route(bf, c, c // 4)
+        key = "coupling_mma" if route == "mma" else "coupling"
+        _line(key, name, f"C={c} {h}x{w} B={batch} route {route}", tk, tp,
+              bound)
+        tally(key, count, tk, tp, bound)
+        # the float32 route: the CUDA-core kernel, TF32 off on both sides
+        wp = cf.pack_coupling_weights(
+            _rand_branch(gen, c, c // 4, c, device), torch.float32)
+        x1, x2 = x1.float(), x2.float()
+        tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
+                            lambda: cf.coupling_block_plain(x1, x2, wp),
+                            iters=5)
+        bound = bound_coupling(batch, c, h, w, esize=4, peak=PEAK_F32)
+        route = cf.coupling_route(torch.float32, c, c // 4)
+        _line("coupling", name, f"C={c} {h}x{w} B={batch} route {route}",
+              tk, tp, bound, dtype="float32")
         tally("coupling", count, tk, tp, bound)
     for name, c, h, w, count in K2_SHAPES:
         wp = cf.pack_transition_weights(
@@ -726,8 +821,8 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: forward "
               f"K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; inverse K2 "
               f"{i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
-    for name, g, n, m, count in K4_SHAPES:
-        g = g * batch if name == "512 s1" else g
+    for name, g, n, m, count in K4_SHAPES + [K4_UNROUTED + (0,)]:
+        g = g * batch if name in ("512 s1", "256 s1") else g
         q, k, v = (torch.randn(s, generator=gen).to(device, bf)
                    for s in ((g, n, 64), (g, m, 64), (g, m, 64)))
         tk, tp = _time_pair(lambda: att.sr_attention(q, k, v, 0.125),
@@ -881,6 +976,9 @@ def main():
     print(f"phase global done at {time.perf_counter() - t0:.1f} s")
     seg, region, plan = phase_masked(ops, model, style, device, gen, total)
     print(f"phase masked done at {time.perf_counter() - t0:.1f} s")
+    # the wrapper counts every K1 launch; the CUDA-core kernel's are those
+    # that did not take the tensor-core kernel
+    total["coupling"] -= total["coupling_mma"]
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -894,13 +992,16 @@ def main():
          "replaces": KERNELS[k][1], "launches": total[k],
          "max_abs_err": worst[k], **rec[k]} for k in KERNELS]}
     print("kernels: launches are those of the main paths' runs (global 2 "
-          "batches, masked 2 batches, seg 256 and 640x360 one each); ms, "
-          "plain_ms, bound_ms and library_ms are sums over the launches of "
-          "one encode at bf16 B=8 (coupling 30 and transition 2 at 512x512, "
-          "transition_half 2 at 640x360) or of one segment call at 512x512 "
-          "B=8 (attention 3, dwconv_gelu 41); bound_ms sums each launch's "
+          "bf16 batches and 1 float32 batch, masked 2 batches, seg 256 and "
+          "640x360 one each); ms, plain_ms, bound_ms and library_ms are "
+          "sums over the launches of one encode at B=8 (coupling_mma 30 "
+          "and transition 2 in bf16 at 512x512; coupling, the float32 "
+          "route's kernel, 30 in float32; transition_half 2 in bf16 at "
+          "640x360) or of one segment call at 512x512 B=8 in bf16 "
+          "(attention 3, dwconv_gelu 41); bound_ms sums each launch's "
           "bound and bound_by names the kind that holds the larger share; "
-          "max_abs_err is the largest bf16 kernel-vs-plain error of phase 3")
+          "max_abs_err is the largest kernel-vs-plain error of phase 3, in "
+          "bf16 (coupling: in float32)")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

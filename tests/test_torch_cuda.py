@@ -10,8 +10,12 @@ chip_smoke.py covers the main path's 512x512 shapes.
 
 Tolerances: float32 within 1e-4 of the output's scale (the kernel and
 cuDNN may sum in different orders); bf16 within 2 bf16 ulps of the
-output's scale (one h1/h2 rounding flip plus the final rounding); the
-float32 round trip through a kernel within 1e-5 of the output's scale.
+output's scale (one h1/h2 rounding flip plus the final rounding; the
+tensor-core kernels sum in another order than the plain versions, so bit
+identity is not expected); the float32 round trip through a kernel within
+1e-5 of the output's scale; the bf16 round trip through the tensor-core
+coupling kernel within 2 bf16 ulps of the stream's scale (F cancels bit
+for bit, the two roundings of y and x1 remain).
 The attention kernel (K4) rounds its probabilities to bf16 before P.V, so
 a probability near a rounding boundary may flip; with M keys of weight
 <= 1/M each that moves the output by far less than one bf16 ulp of its
@@ -71,8 +75,14 @@ def _err(a, b):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,h,w", [(16, 40, 36), (64, 24, 20),
-                                   (256, 16, 12), (16, 2, 34)])
+                                   (256, 16, 12), (16, 2, 34),
+                                   (256, 20, 36), (256, 7, 45), (64, 40, 36),
+                                   (64, 2, 2), (64, 33, 5), (16, 70, 33),
+                                   (16, 5, 100), (32, 20, 24)])
 def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
+    """Both K1 routes (bf16 at C=256, C=64 and C=16 is a tensor-core kernel;
+    float32 and C=32 the CUDA-core one) at sizes with tails and with H or W
+    below the tile."""
     wp = cf.pack_coupling_weights(_weights(gen, c, c // 4, c, dev), dt)
     x1 = torch.randn((2, c, h, w), device=dev).to(dt)
     x2 = torch.randn((2, c, h, w), device=dev).to(dt)
@@ -86,6 +96,27 @@ def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
         y = cf.fused_coupling(x1, x2, wp)
         back = cf.fused_coupling(y, x2, wp, inverse=True)
         assert _err(back, x1) <= 1e-5 * max(float(y.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("c,h,w", [(256, 20, 36), (64, 40, 36), (64, 9, 50),
+                                   (16, 70, 33), (16, 32, 64)])
+def test_coupling_mma_forward_then_inverse(dev, gen, c, h, w):
+    """The tensor-core route in bf16: inverse(forward(x1)) against x1. The
+    inverse recomputes F bit for bit, so only the roundings of y and of
+    the restored x1 remain; and the launch is deterministic."""
+    bf = torch.bfloat16
+    assert cf.coupling_route(bf, c, c // 4) == "mma"
+    wp = cf.pack_coupling_weights(_weights(gen, c, c // 4, c, dev), bf)
+    x1 = torch.randn((2, c, h, w), device=dev).to(bf)
+    x2 = torch.randn((2, c, h, w), device=dev).to(bf)
+    y = cf.fused_coupling(x1, x2, wp)
+    assert torch.equal(y, cf.fused_coupling(x1, x2, wp))
+    back = cf.fused_coupling(y, x2, wp, inverse=True)
+    assert _err(back, x1) <= _tol(y, bf)
+    # F itself is the same bits both ways: y - x1' and y - x1 share it
+    f_fwd = cf.fused_coupling(torch.zeros_like(x1), x2, wp)
+    f_inv = cf.fused_coupling(torch.zeros_like(x1), x2, wp, inverse=True)
+    assert torch.equal(f_fwd, -f_inv)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -135,10 +166,13 @@ def test_half_res_transition_kernel(dev, gen, dt, c, h, w):
 
 
 @pytest.mark.parametrize("g,n,m", [(2, 200, 64), (3, 70, 36), (1, 130, 600),
-                                   (1, 40, 1100), (1, 9, 8192)])
+                                   (1, 40, 1100), (1, 9, 8192),
+                                   (2, 257, 33), (1, 128, 1), (2, 300, 97),
+                                   (1, 513, 4096)])
 def test_attention_kernel_matches_plain(dev, g, n, m):
-    """K4 at ragged shapes: N no multiple of the query tile, M no multiple
-    of the key chunk, and every query-tile size from 64 rows down to 4."""
+    """K4 at ragged shapes: N no multiple of the 128-row query tile, M no
+    multiple of 16, of the 32-key score tile or of the 64-key stage, M
+    below one tile and M at the largest the wrapper takes."""
     gen = torch.Generator().manual_seed(g * 1000 + n + m)
     q, k, v = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
                for s in ((g, n, 64), (g, m, 64), (g, m, 64)))

@@ -268,3 +268,121 @@ def test_bf16_pack_rounds_weights(rng):
     flat = wp["flat"]
     assert flat.dtype == torch.float32
     assert torch.equal(flat, flat.to(torch.bfloat16).float())
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core route of K1: weight pieces and routing
+# ---------------------------------------------------------------------------
+
+def _bf16_branch(rng, c, m):
+    """A branch whose values are already bf16-representable, so that the
+    JAX kernel (float32) and the bf16 packing hold the same numbers."""
+    branch = _branch_np(rng, c, m, c)
+    for conv in branch.values():
+        for k in conv:
+            conv[k] = torch.from_numpy(conv[k]).bfloat16().float().numpy()
+    return branch
+
+
+@pytest.mark.parametrize("c,m", [(256, 64), (64, 16)])
+def test_coupling_mma_pack_holds_the_plain_weights(rng, c, m):
+    """pack_coupling_mma's bf16 pieces hold exactly the values of _pack's
+    "w", in [co chunk][ci chunk][tap][ci][co] order."""
+    wp = cf.pack_coupling_weights(_torch_weights(_branch_np(rng, c, m, c)),
+                                  torch.bfloat16)
+    pieces = wp["mma"]
+    assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
+    assert pieces.numel() == 9 * m * (2 * c + m)
+    unpacked = cf.unpack_coupling_mma(pieces, c, m)
+    for got, (want, _) in zip(unpacked, wp["w"]):
+        assert got.shape == want.shape
+        assert bool((got == want).all())
+    # conv1, second input chunk of 32, tap (1, 2), ci 3 of the chunk, co 5
+    w1 = wp["w"][0][0]
+    p1 = pieces[: 9 * c * m].float().reshape(c // 32, 9, 32, m)
+    assert float(p1[1, 5, 3, 5]) == float(w1[5, 32 + 3, 1, 2])
+    # conv3, last output chunk of 64, last input chunk
+    kc = min(32, m)
+    w3 = wp["w"][2][0]
+    p3 = pieces[9 * m * (c + m):].float().reshape(c // 64, m // kc, 9, kc, 64)
+    assert float(p3[-1, -1, 7, 2, 9]) == float(
+        w3[c - 64 + 9, m - kc + 2, 2, 1])
+    # float32 weights and widths the kernel is not built for carry no pieces
+    assert "mma" not in cf.pack_coupling_weights(
+        _torch_weights(_branch_np(rng, c, m, c)))
+    assert "mma" not in cf.pack_coupling_weights(
+        _torch_weights(_branch_np(rng, 128, 32, 128)), torch.bfloat16)
+
+
+def test_coupling_mma_narrow_pack_holds_the_plain_weights(rng):
+    """At C=16/M=4 the weights go to the kernel as zero-padded B matrices in
+    per-lane fragment order: unpacked they are exactly _pack's "w", the
+    padding is zero, and a fragment sits where the kernel reads it."""
+    c, m = 16, 4
+    wp = cf.pack_coupling_weights(_torch_weights(_branch_np(rng, c, m, c)),
+                                  torch.bfloat16)
+    frags = wp["mma"]
+    assert frags.dtype == torch.bfloat16
+    assert frags.numel() == (9 + 5 + 10) * 32 * 4
+    for got, (want, _) in zip(cf.unpack_coupling_mma(frags, c, m), wp["w"]):
+        assert got.shape == want.shape
+        assert bool((got == want).all())
+    nonzero = sum(int((w != 0).sum()) for w, _ in wp["w"])
+    assert int((frags != 0).sum()) == nonzero
+    # conv2 starts after conv1's 9 k-steps; its k-step 1 holds taps 2 and 3.
+    # Lane 4g + t, register 1, element 0 is row 2t + 8 = tap 3, ci 2t of
+    # column g: w2[co=g, ci=2t, ky=1, kx=0]
+    w2 = wp["w"][1][0]
+    f2 = frags[9 * 128:].float().reshape(-1, 32, 2, 2)
+    g, t = 3, 1
+    assert float(f2[1, 4 * g + t, 1, 0]) == float(w2[g, 2 * t, 1, 0])
+    # conv3, k-step 4 (tap 8 and the padding tap), n-tile 1: co 8 + g
+    w3 = wp["w"][2][0]
+    f3 = frags[14 * 128:].float().reshape(5, 2, 32, 2, 2)
+    assert float(f3[4, 1, 4 * g + t, 0, 1]) == float(w3[8 + g, 2 * t + 1, 2, 2])
+    assert float(f3[4, 1, 4 * g + t, 1, 1]) == 0.0
+
+
+def test_coupling_mma_unpacked_weights_match_jax_kernel(rng):
+    """coupling_block_plain on the weights recovered from the bf16 pieces
+    against the JAX kernel on the same (bf16-representable) weights, in
+    float32: what the tensor-core kernel is given is what the JAX package
+    computes with. atol 1e-4, as test_coupling_plain_matches_jax_kernel
+    allows at its wide shape: at C=64 the outputs are O(30) and float32
+    roundoff over K = 9*16 products reaches a few 1e-5."""
+    c, m, h, w = 64, 16, 16, 128
+    branch = _bf16_branch(rng, c, m)
+    packed_j = cflat.pack_branch_weights_flat(_jax_branch(branch))
+    x1 = rng.standard_normal((2, c, h, w)).astype(np.float32)
+    x2 = rng.standard_normal((2, c, h, w)).astype(np.float32)
+    wp = cf.pack_coupling_weights(_torch_weights(branch), torch.bfloat16)
+    w1, w2, w3 = cf.unpack_coupling_mma(wp["mma"], c, m)
+    recovered = dict(wp, w=tuple(
+        (wt.contiguous(), b) for wt, (_, b) in zip((w1, w2, w3), wp["w"])))
+    to_flat = lambda a: cflat.nhwc_to_flat(
+        jnp.asarray(a.transpose(0, 2, 3, 1)))
+    for inverse in (False, True):
+        y = cflat.fused_coupling_flat(to_flat(x1), to_flat(x2), packed_j, h,
+                                      w, th=h // 2, inverse=inverse,
+                                      interpret=True)
+        want = np.asarray(cflat.flat_to_nhwc(y, h, w)).transpose(0, 3, 1, 2)
+        got = cf.coupling_block_plain(torch.from_numpy(x1),
+                                      torch.from_numpy(x2), recovered,
+                                      inverse)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,c,m,route", [
+    (torch.bfloat16, 256, 64, "mma"), (torch.bfloat16, 64, 16, "mma"),
+    (torch.bfloat16, 16, 4, "mma"), (torch.bfloat16, 128, 32, "fma"),
+    (torch.bfloat16, 32, 8, "fma"),
+    (torch.float32, 256, 64, "fma"), (torch.float32, 64, 16, "fma"),
+    (torch.float32, 16, 4, "fma"),
+])
+def test_coupling_route(dtype, c, m, route):
+    """The K1 route is a function of (dtype, C, M) alone: the tensor cores
+    for bf16 at the three widths the kernels are built for, the CUDA cores
+    for every float32 shape (no TF32) and any other bf16 width."""
+    assert cf.coupling_route(dtype, c, m) == route
+    assert ((c, m) in cf.MMA_WIDTHS) == (
+        cf.coupling_route(torch.bfloat16, c, m) == "mma")

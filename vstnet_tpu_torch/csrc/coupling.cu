@@ -13,11 +13,12 @@
 //   C=64,  M=16, 256x256 (stage 2)       41472 FLOP /  384 B = 108 FLOP/B
 //   C=256, M=64, 128x128 (stage 3)      663552 FLOP / 1536 B = 432 FLOP/B
 //   C=256, M=64, 128x128 (reduction)    the same as stage 3
-// This simple design runs on the CUDA cores (float32 FMA, about 67 TFLOP/s
-// on the SXM part, so the ridge is near 20 FLOP/B): all four shapes are
-// bound by FMA issue, not by HBM. On the tensor cores (989 TFLOP/s bf16,
-// ridge near 295 FLOP/B) stages 1 and 2 would turn memory-bound and
-// stage 3 stays compute-bound; that is later work.
+// This design runs on the CUDA cores (float32 FMA, about 67 TFLOP/s on the
+// SXM part, so the ridge is near 20 FLOP/B): all four shapes are bound by
+// the FMA rate, not by HBM. It is the route of float32 (a float32 product on
+// the tensor cores would be TF32, which every float32 route keeps off) and
+// of bf16 at widths coupling_mma.cu is not built for; bf16 at the network's
+// three widths runs on the tensor cores there.
 //
 // The simple design: one thread block per (frame, 16x16 output tile), of
 // 512 threads at C=256 (its 216 KB of shared memory admits one block per

@@ -2,7 +2,9 @@
 
 Each kernel wrapper counts its launches in a plain int attribute;
 `launch_counts` reads all five and `reset_launch_counts` clears them, so a
-run can show which kernels its path went through.
+run can show which kernels its path went through. "coupling" counts every
+launch of `fused_coupling`; "coupling_mma" is the share of them that took
+the tensor-core kernel (csrc/coupling_mma.cu).
 """
 
 
@@ -18,9 +20,14 @@ def _wrappers():
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts["coupling_mma"] = wrappers["coupling"].mma_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["coupling"].mma_launches = 0

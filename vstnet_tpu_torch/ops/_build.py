@@ -36,6 +36,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     # x1, x2, weights, out, B, C, M, H, W, inverse, is_bf16, stream
     "vst_coupling": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x1, x2, bf16 pieces, b1 in the float32 weights, out, B, C, M, H, W,
+    # inverse, stream
+    "vst_coupling_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, b, weights, out0, out1, B, C, M, h, w, inverse, is_bf16, stream
     "vst_transition": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P],

@@ -1,10 +1,13 @@
-"""Single-pass attention for SegFormer's spatial-reduction attention (K4).
+"""Attention for SegFormer's spatial-reduction attention (K4).
 
 Counterpart of vstnet_tpu/ops/attention.py (sr_attention_flash, flash_ok).
-The kernel is CUDA C++ for Hopper in `csrc/attention.cu`, built at first
-use by `ops/_build.py`; beside it is its plain PyTorch version with the
-same dtype chain: float32 scores, softmax in float32, probabilities rounded
-to the input's dtype before P.V, float32 sums, one rounding at the output.
+The kernel is CUDA C++ for Hopper in `csrc/attention.cu` (bf16 operands on
+the tensor cores, two passes over K so that no score tile is stored), built
+at first use by `ops/_build.py`; beside it is its plain PyTorch version
+with the same dtype chain: float32 scores, softmax in float32,
+probabilities rounded to the input's dtype before P.V, float32 sums, one
+rounding at the output. The kernel sums in another order than the plain
+version, so the two agree within bf16 rounding, not bit for bit.
 
 Layouts: q (G, N, D) with k, v (G, M, D), G = batch * heads, as in the JAX
 package; or q (B, N, heads, D) with k, v (B, M, heads, D), the views the
@@ -23,10 +26,9 @@ import torch
 
 from vstnet_tpu_torch.ops import _build
 
-# Largest K/V token count the kernel takes (its float32 score rows must fit
-# shared memory at the smallest query tile) and the smallest query count it
-# is routed for: the JAX package's routing, kept so that both packages run
-# their kernel on the same shapes.
+# Largest K/V token count the wrapper takes (the kernel itself has no limit
+# from M) and the smallest query count it is routed for: the JAX package's
+# routing, kept so that both packages run their kernel on the same shapes.
 MAX_KV = 8192
 MIN_Q = 8192
 HEAD_DIM = 64

@@ -2,17 +2,25 @@
 
 Counterpart of vstnet_tpu/ops/coupling_flat.py (fused_coupling_flat,
 fused_transition_full and fused_transition_flat). The kernels are CUDA C++
-for Hopper in `csrc/coupling.cu` and `csrc/transition.cu`, built at first
-use by `ops/_build.py`. Beside each kernel is its plain PyTorch version,
-built from ops/pad_conv.py with the same rounding points. K2 takes and
-returns full-resolution streams and does the pixel (un)shuffle inside; K3
-(`fused_transition_half`) is the same block on streams the caller has
-already unshuffled to half resolution.
+for Hopper in `csrc/coupling.cu`, `csrc/coupling_mma.cu` and
+`csrc/transition.cu`, built at first use by `ops/_build.py`. Beside each
+kernel is its plain PyTorch version, built from ops/pad_conv.py with the
+same rounding points. K2 takes and returns full-resolution streams and does
+the pixel (un)shuffle inside; K3 (`fused_transition_half`) is the same
+block on streams the caller has already unshuffled to half resolution.
+
+K1 has two routes, chosen by `coupling_route(dtype, C, M)` alone: bf16 at
+the widths C=256/M=64, C=64/M=16 and C=16/M=4 runs on the tensor cores
+(`csrc/coupling_mma.cu`, weights as bf16 pieces or fragments from
+`pack_coupling_mma`); float32 at every width, and bf16 at any other width,
+run on the CUDA cores (`csrc/coupling.cu`). float32 stays off the tensor
+cores because a float32 product there would be TF32.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back from one to the other.
 Each wrapper counts its kernel launches in a plain int attribute
-(`fused_coupling.launches`, `fused_transition.launches`,
+(`fused_coupling.launches`, of which `fused_coupling.mma_launches` took
+the tensor-core kernel; `fused_transition.launches`,
 `fused_transition_half.launches`).
 """
 
@@ -44,12 +52,130 @@ def _pack(weights, dtype):
             "cin": w1.shape[1], "mid": w1.shape[0], "cout": w3.shape[0]}
 
 
+# (C, M) widths the tensor-core coupling kernels are built for; the piece
+# sizes of the two wide ones: input channels per piece of conv1, of conv2
+# and conv3, output channels per piece of conv3 (csrc/coupling_mma.cu:
+# MmaCfg); and the narrow width, whose weights are packed as fragments
+MMA_WIDTHS = ((256, 64), (64, 16), (16, 4))
+MMA_NARROW = (16, 4)
+_MMA_KC1 = 32
+_MMA_KC = 32
+_MMA_NC3 = 64
+
+
+def coupling_route(dtype, c: int, m: int) -> str:
+    """Which K1 kernel takes (dtype, C, M): "mma" (tensor cores, bf16 at the
+    widths of MMA_WIDTHS) or "fma" (CUDA cores: float32, and bf16 at every
+    other width). A function of its arguments only, the same for every
+    call."""
+    if dtype == torch.bfloat16 and (c, m) in MMA_WIDTHS:
+        return "mma"
+    return "fma"
+
+
+def _mma_piece_shapes(c: int, m: int):
+    """(ci per piece, co per piece) of conv1, conv2, conv3."""
+    kc = min(_MMA_KC, m)
+    return (_MMA_KC1, m), (kc, m), (kc, _MMA_NC3)
+
+
+def _to_pieces(w, kc: int, nc: int):
+    """OIHW (Cout, Cin, 3, 3) -> [co chunk][ci chunk][tap][ci][co], flat."""
+    cout, cin = w.shape[:2]
+    t = w.permute(2, 3, 1, 0).reshape(9, cin // kc, kc, cout // nc, nc)
+    return t.permute(3, 1, 0, 2, 4).reshape(-1)
+
+
+def _from_pieces(flat, cout: int, cin: int, kc: int, nc: int):
+    """Inverse of _to_pieces: flat -> OIHW (Cout, Cin, 3, 3)."""
+    t = flat.reshape(cout // nc, cin // kc, 9, kc, nc).permute(2, 1, 3, 0, 4)
+    return t.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def _narrow_matrix(w, ci_pad: int, co_pad: int, taps: int):
+    """OIHW -> the narrow kernel's B matrix [taps * ci_pad][co_pad], row
+    tap * ci_pad + ci, zero where ci, co or the tap is padding."""
+    cout, cin = w.shape[:2]
+    b = w.new_zeros((taps, ci_pad, co_pad))
+    b[:9, :cin, :cout] = w.permute(2, 3, 1, 0).reshape(9, cin, cout)
+    return b.reshape(taps * ci_pad, co_pad)
+
+
+def _from_narrow_matrix(b, cout: int, cin: int, ci_pad: int):
+    t = b.reshape(-1, ci_pad, b.shape[1])[:9, :cin, :cout]
+    return t.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def _to_fragments(b):
+    """B (K, N) -> mma.sync.m16n8k16 B fragments, [k-step][n-tile][lane]
+    [register][element]: lane 4g + t holds rows 2t, 2t+1 (register 0) and
+    2t+8, 2t+9 (register 1) of column g of its 16 x 8 block."""
+    k, n = b.shape
+    t = b.reshape(k // 16, 2, 4, 2, n // 8, 8)     # ks, reg, t, elem, nt, g
+    return t.permute(0, 4, 5, 2, 1, 3).reshape(-1)
+
+
+def _from_fragments(flat, k: int, n: int):
+    t = flat.reshape(k // 16, n // 8, 8, 4, 2, 2)  # ks, nt, g, t, reg, elem
+    return t.permute(0, 4, 3, 5, 1, 2).reshape(k, n)
+
+
+# the narrow kernel's B matrices: (ci padded to, co padded to, taps padded
+# to) of conv1, conv2, conv3; conv2 and conv3 take two taps of 8 padded
+# channels per k-step, so their nine taps are padded to ten
+_NARROW_PADS = ((16, 8, 9), (8, 8, 10), (8, 16, 10))
+
+
+def pack_coupling_mma(rounded):
+    """The tensor-core kernel's weights as one bf16 vector. At the wide
+    widths: pieces, each [tap][ci][co] for a chunk of input and output
+    channels, in the order the kernel streams them (conv1 by input chunk;
+    conv2 by input chunk; conv3 by output chunk, then input chunk). At the
+    narrow width: every conv's zero-padded B matrix as per-lane fragments.
+    `rounded` holds bf16-rounded values as float32 (_pack's "w"), so the
+    bf16 copy is exact."""
+    (w1, _), (w2, _), (w3, _) = rounded
+    if (w1.shape[1], w1.shape[0]) == MMA_NARROW:
+        return torch.cat([
+            _to_fragments(_narrow_matrix(w, *pads))
+            for w, pads in zip((w1, w2, w3), _NARROW_PADS)]).to(
+                torch.bfloat16).contiguous()
+    shapes = _mma_piece_shapes(w1.shape[1], w1.shape[0])
+    return torch.cat([_to_pieces(w, kc, nc) for w, (kc, nc)
+                      in zip((w1, w2, w3), shapes)]).to(
+                          torch.bfloat16).contiguous()
+
+
+def unpack_coupling_mma(pieces, c: int, m: int):
+    """pack_coupling_mma's vector -> (w1, w2, w3) OIHW as float32."""
+    out, at = [], 0
+    if (c, m) == MMA_NARROW:
+        for (cout, cin), (ci_pad, co_pad, taps) in zip(
+                ((m, c), (m, m), (c, m)), _NARROW_PADS):
+            k = taps * ci_pad
+            b = _from_fragments(pieces[at:at + k * co_pad].float(), k, co_pad)
+            out.append(_from_narrow_matrix(b, cout, cin, ci_pad))
+            at += k * co_pad
+        return tuple(out)
+    for (cout, cin), (kc, nc) in zip(((m, c), (m, m), (c, m)),
+                                     _mma_piece_shapes(c, m)):
+        n = cout * cin * 9
+        out.append(_from_pieces(pieces[at:at + n].float(), cout, cin, kc, nc))
+        at += n
+    return tuple(out)
+
+
 def pack_coupling_weights(weights, dtype=torch.float32):
-    """Stride-1 branch weights (C -> C/4 -> C/4 -> C) in the K1 layout."""
+    """Stride-1 branch weights (C -> C/4 -> C/4 -> C) in the K1 layouts:
+    "flat" for the CUDA-core kernel (and the biases of both), and "mma",
+    the bf16 pieces, where coupling_route sends this block to the
+    tensor-core kernel."""
     packed = _pack(weights, dtype)
     if packed["cin"] != packed["cout"]:
         raise ValueError(f"coupling branch must map C -> C, got "
                          f"{packed['cin']} -> {packed['cout']}")
+    if coupling_route(dtype, packed["cin"], packed["mid"]) == "mma":
+        packed["mma"] = pack_coupling_mma(packed["w"])
     return packed
 
 
@@ -139,18 +265,33 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
                          f"{w['cin']}")
     out = torch.empty_like(x1)
     lib = _build.load()
+    m = w["mid"]
+    mma = coupling_route(x1.dtype, c, m) == "mma"
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vst_coupling(
-            x1.data_ptr(), x2.data_ptr(), w["flat"].data_ptr(),
-            out.data_ptr(), b, c, w["mid"], h, wd, int(inverse),
-            int(x1.dtype == torch.bfloat16), stream)
+        if mma:
+            pieces = w["mma"]
+            if pieces.device != x1.device:
+                raise ValueError("fused_coupling: bf16 weight pieces on "
+                                 f"{pieces.device}, inputs on {x1.device}")
+            # the biases are read from the float32 buffer: b1 follows w1
+            b1 = w["flat"].data_ptr() + 4 * c * 9 * m
+            err = lib.vst_coupling_mma(
+                x1.data_ptr(), x2.data_ptr(), pieces.data_ptr(), b1,
+                out.data_ptr(), b, c, m, h, wd, int(inverse), stream)
+        else:
+            err = lib.vst_coupling(
+                x1.data_ptr(), x2.data_ptr(), w["flat"].data_ptr(),
+                out.data_ptr(), b, c, m, h, wd, int(inverse),
+                int(x1.dtype == torch.bfloat16), stream)
     _build.check(err, "fused_coupling")
     fused_coupling.launches += 1
+    fused_coupling.mma_launches += mma
     return out
 
 
 fused_coupling.launches = 0
+fused_coupling.mma_launches = 0
 
 
 def fused_transition(a, b, w, inverse: bool = False):
@@ -227,5 +368,6 @@ fused_transition_half.launches = 0
 
 def reset_launches() -> None:
     fused_coupling.launches = 0
+    fused_coupling.mma_launches = 0
     fused_transition.launches = 0
     fused_transition_half.launches = 0
