@@ -30,8 +30,9 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               batches of 4 frames, with launch counts per batch (K1 60,
               all on the tensor cores, K2 4, K4 3, K5 41) and the gates:
               kernel-route logits against the plain bf16 route's, mask
-              agreement, bf16 kernel route
-              against the float32 plain route on the same masks; then once
+              agreement on the pixels the plain route decides by more than
+              a bf16 ulp, bf16 kernel route against the float32 plain route
+              on the same masks; then once
               with the segmenter at 256x256 (no K4: under the routing
               threshold) and once on 640x360 frames (K3 in place of K2).
   6. timings  each kernel against its plain version (and, for K4, against
@@ -78,17 +79,18 @@ ROUND_TRIP_TOL = 1e-5
 # Gates of phase 5, on seeded random weights. The kernel route and the
 # plain bf16 route of the segmenter share one dtype chain, so they differ
 # by bf16 rounding flips carried through 41 blocks: the logits must agree
-# within 5 % of their largest magnitude and have a cosine above 0.99 (the
-# JAX package's own measure for its attention kernel). Random weights give
-# near-tied logits over 150 classes, so a flip can change a pixel's label:
-# the masks must agree on 98 % of the pixels. Beside it the run prints how
-# well the plain bf16 route's masks agree with the float32 route's: what
-# the working dtype itself moves. (While the attention kernel summed in the
-# plain version's order the two routes were bit-identical and the mask gate
-# stood at 0.99; on the tensor cores it cannot sum in that order.)
+# within 5 % of their largest magnitude and have a cosine above 0.9999.
+# The masks must agree on 99 % of the decided pixels: those where the plain
+# route's best class leads its second by more than one bf16 ulp of the
+# logits' scale. A smaller lead is a tie in the working dtype (random
+# weights spread 150 classes over a narrow range, so there are many), and
+# which side of a tie a route lands on is no property of a kernel. The run
+# prints the decided share, the agreement over all pixels, and how well the
+# plain bf16 route's masks agree with the float32 route's: what the working
+# dtype itself moves.
 LOGIT_REL_TOL = 0.05
-LOGIT_COSINE = 0.99
-MASK_AGREE = 0.98
+LOGIT_COSINE = 0.9999
+MASK_AGREE = 0.99
 PSNR_GATE = 40.0
 
 # Published peaks of the H100 SXM (NVIDIA's data sheet): HBM3 bytes/s,
@@ -167,8 +169,7 @@ def _rand_branch(gen, cin, mid, cout, device):
 
 
 def _bf16_tol(ref, ulps=BF16_ULPS):
-    scale = float(ref.float().abs().max())
-    return ulps * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return ulps * _bf16_ulp(float(ref.float().abs().max()))
 
 
 def _max_err(a, b):
@@ -178,6 +179,11 @@ def _max_err(a, b):
 def _psnr(a, b):
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def _bf16_ulp(scale):
+    """One bf16 ulp at a value of magnitude `scale`."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
 def _dt(dt):
@@ -464,11 +470,11 @@ def phase_global(ops, device, gen, total):
         after = ops.launch_counts()
         d = {k: after[k] - before[k] for k in after}
         if (d["coupling"], d["coupling_mma"], d["transition"]) != (
-                60, mma, 4):
-            raise AssertionError(f"launches per batch {d}, want 60 coupling "
-                                 f"({mma} of them on the tensor cores) and 4 "
-                                 "transition (30 + 2 per encode and per "
-                                 "decode)")
+                60 - mma, mma, 4):
+            raise AssertionError(f"launches per batch {d}, want 60 of K1 "
+                                 f"({mma} of them coupling_mma, the rest "
+                                 "coupling) and 4 transition (30 + 2 per "
+                                 "encode and per decode)")
         return out
 
     ops.reset_launch_counts()
@@ -610,7 +616,7 @@ def phase_masked(ops, model, style, device, gen, total):
                                  f"{want}")
         return out, masks
 
-    want = {"coupling": 60, "coupling_mma": 60, "transition": 4,
+    want = {"coupling": 0, "coupling_mma": 60, "transition": 4,
             "transition_half": 0,
             "attention": 3, "dwconv_gelu": 41}
     ops.reset_launch_counts()
@@ -641,7 +647,12 @@ def phase_masked(ops, model, style, device, gen, total):
     cwct.host_check_finite(logits, "segmenter logits")
     scale = float(logits_p.abs().max())
     err = _max_err(logits, logits_p)
-    agree = float((logits.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    same = logits.argmax(-1) == logits_p.argmax(-1)
+    top2 = logits_p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > _bf16_ulp(scale)
+    share = float(decided.float().mean())
+    agree = float(same[decided].float().mean())
+    agree_all = float(same.float().mean())
     cos = float(torch.nn.functional.cosine_similarity(
         logits.float().flatten(), logits_p.float().flatten(), dim=0))
     masks32 = sf.segment_logits(seg.net, frames, half=False).argmax(-1)
@@ -649,12 +660,15 @@ def phase_masked(ops, model, style, device, gen, total):
     print(f"gate segmenter kernel vs plain bf16 route: logits max abs err "
           f"{err:.3e} at scale {scale:.3e} (<= {LOGIT_REL_TOL} of it), "
           f"cosine {cos:.6f} (> {LOGIT_COSINE}), mask agreement {agree:.5f} "
-          f"(>= {MASK_AGREE}; the plain bf16 route agrees with the float32 "
-          f"route on {floor:.5f})")
+          f"(>= {MASK_AGREE}) on the {share:.5f} of the pixels that the "
+          f"plain route decides by more than a bf16 ulp of the scale "
+          f"({_bf16_ulp(scale):.3e}); over all pixels {agree_all:.5f} (the "
+          f"plain bf16 route agrees with the float32 route on {floor:.5f})")
     if not (err <= LOGIT_REL_TOL * scale and cos > LOGIT_COSINE
             and agree >= MASK_AGREE):
         raise AssertionError(f"segmenter routes disagree: {err} {cos} "
-                             f"{agree} (float32 floor {floor})")
+                             f"{agree} on {share} of the pixels, {agree_all} "
+                             f"on all (float32 floor {floor})")
 
     # bf16 kernel route vs float32 plain route, the kernel route's masks
     got, _ = make_masked_fused_video_fn(cfg, seg_half=True)(
@@ -695,7 +709,7 @@ def phase_masked(ops, model, style, device, gen, total):
     dec = {k: v - enc[k] for k, v in ops.launch_counts().items()}
     for what, d in (("encode", enc), ("decode", dec)):
         if (d["coupling"], d["coupling_mma"], d["transition"],
-                d["transition_half"]) != (30, 30, 0, 2):
+                d["transition_half"]) != (0, 30, 0, 2):
             raise AssertionError(f"640x360 {what}: launches {d}")
     ops.reset_launch_counts()
     out, mw = run(video, wide, dict(want, transition=0, transition_half=4),
@@ -976,9 +990,6 @@ def main():
     print(f"phase global done at {time.perf_counter() - t0:.1f} s")
     seg, region, plan = phase_masked(ops, model, style, device, gen, total)
     print(f"phase masked done at {time.perf_counter() - t0:.1f} s")
-    # the wrapper counts every K1 launch; the CUDA-core kernel's are those
-    # that did not take the tensor-core kernel
-    total["coupling"] -= total["coupling_mma"]
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

@@ -86,12 +86,18 @@ def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
     wp = cf.pack_coupling_weights(_weights(gen, c, c // 4, c, dev), dt)
     x1 = torch.randn((2, c, h, w), device=dev).to(dt)
     x2 = torch.randn((2, c, h, w), device=dev).to(dt)
-    before = cf.fused_coupling.launches
+    before = cf.coupling_launches()
+    mma_before = cf.fused_coupling.mma_launches
+    fma_before = cf.fused_coupling.fma_launches
     for inverse in (False, True):
         got = cf.fused_coupling(x1, x2, wp, inverse)
         ref = cf.coupling_block_plain(x1, x2, wp, inverse)
         assert _err(got, ref) <= _tol(ref, dt)
-    assert cf.fused_coupling.launches == before + 2
+    assert cf.coupling_launches() == before + 2
+    mma = cf.coupling_route(dt, c, c // 4) == "mma"
+    assert (cf.fused_coupling.mma_launches - mma_before,
+            cf.fused_coupling.fma_launches - fma_before) == (
+                (2, 0) if mma else (0, 2))
     if dt == torch.float32:
         y = cf.fused_coupling(x1, x2, wp)
         back = cf.fused_coupling(y, x2, wp, inverse=True)
@@ -282,7 +288,7 @@ def test_fast_path_on_card_matches_standard_path(dev, w):
     z = rf.encode_fast(fast, x, cfg)
     # half-res widths 16 and 8 (or 28 and 14) are no multiples of 128: both
     # stride-2 blocks take the half-res entry (K3)
-    assert (cf.fused_coupling.launches, cf.fused_transition.launches,
+    assert (cf.fused_coupling.fma_launches, cf.fused_transition.launches,
             cf.fused_transition_half.launches) == (6, 0, 2)
     assert _err(z, net.encode(x)) <= 1e-5
     back = rf.decode_fast(fast, z, cfg)

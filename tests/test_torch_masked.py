@@ -377,7 +377,7 @@ def test_masked_video_program_matches_jax(rng, models, _interpret, seg_hw):
         SMALL, min_ratio=min_ratio, seg_hw=seg_hw, seg_half=False)
     got, masks = fn(fast, seg_net, seg.label_mapping, region, plan,
                     torch.from_numpy(frames))
-    assert cf.fused_coupling.launches == 0           # CPU: plain versions
+    assert cf.coupling_launches() == 0               # CPU: plain versions
     assert got.shape == (2, 64, 64, 3) and got.dtype == torch.float32
     assert masks.shape == (2, 64, 64) and masks.dtype == torch.int32
     agree = (masks.numpy() == np.asarray(masks_j)).mean()

@@ -49,10 +49,10 @@
 
 // Phase timing for scripts/torch_k1_phase_ticks.py (for machines where no
 // profiler can look inside a kernel): built with -DVST_PHASE_TICKS,
-// every warp of the wide kernel notes clock64() at its phase boundaries and
-// writes the differences to the buffer given to vst_coupling_mma_set_ticks,
-// 8 values per warp, 16 warps per block. Without the flag, as the port
-// builds it, the macros are empty.
+// every warp of a kernel notes clock64() at its phase boundaries and writes
+// the differences to the buffer given to vst_coupling_mma_set_ticks: a row
+// of 16 warps x 8 values per block, in the grid's order. Without the flag,
+// as the port builds it, the macros are empty.
 #ifdef VST_PHASE_TICKS
 __device__ long long* vst_ticks = nullptr;
 #define VST_TICKS_BEGIN() \
@@ -476,6 +476,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
                                __nv_bfloat16* __restrict__ out, int H, int W,
                                int inverse) {
   constexpr int C = 16, M = 4, NW = kNThreads / 32;
+  VST_TICKS_BEGIN();                         // tick 0: start
   extern __shared__ __align__(128) unsigned char cn_smem[];
   unsigned char* xs = cn_smem;
   unsigned char* h1 = xs + kNX * kNX * kNXRow;
@@ -513,6 +514,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
   const float b2x = t < 2 ? __ldg(b2 + 2 * t) : 0.f;
   const float b2y = t < 2 ? __ldg(b2 + 2 * t + 1) : 0.f;
   __syncthreads();
+  VST_TICK();                                // 1: window and weights staged
 
   // conv1 over the h1 ring
   for (int mt = warp; mt < (kNA * kNA + 15) / 16; mt += NW) {
@@ -539,6 +541,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
     }
   }
   __syncthreads();
+  VST_TICK();                                // 2: conv1 done, h1 stored
 
   // conv2 over the h2 ring, from h1
   for (int mt = warp; mt < (kNB * kNB + 15) / 16; mt += NW) {
@@ -564,6 +567,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
     }
   }
   __syncthreads();
+  VST_TICK();                                // 3: conv2 done, h2 stored
 
   // conv3 over the tile, from h2, then x1 +- (sum + bias) rounded once
   for (int mt = warp; mt < kNT * kNT / 16; mt += NW) {
@@ -594,6 +598,8 @@ __global__ void __launch_bounds__(kNThreads, 2)
         }
     }
   }
+  VST_TICK();                                // 4: conv3 and the output done
+  VST_TICKS_END();
 }
 
 inline int launch_coupling_mma_narrow(const void* x1, const void* x2,
@@ -639,7 +645,8 @@ extern "C" int vst_coupling_mma(const void* x1, const void* x2,
 }
 
 #ifdef VST_PHASE_TICKS
-// ticks: device buffer of blocks x 16 x 8 int64, or null to stop recording
+// ticks: device buffer of at least blocks x 16 x 8 int64, or null to stop
+// recording
 extern "C" int vst_coupling_mma_set_ticks(void* ticks) {
   return (int)cudaMemcpyToSymbol(vst_ticks, &ticks, sizeof(ticks));
 }

@@ -1,33 +1,33 @@
 """ops of the PyTorch port (see the package docstring).
 
-Each kernel wrapper counts its launches in a plain int attribute;
-`launch_counts` reads all five and `reset_launch_counts` clears them, so a
-run can show which kernels its path went through. "coupling" counts every
-launch of `fused_coupling`; "coupling_mma" is the share of them that took
-the tensor-core kernel (csrc/coupling_mma.cu).
+Each kernel's launches are counted where it is launched, in a plain int
+attribute of its wrapper; `launch_counts` reads all six by kernel name and
+`reset_launch_counts` clears them, so a run can show which kernels its path
+went through. The counts are disjoint: "coupling" is the CUDA-core K1 kernel
+(csrc/coupling.cu) and "coupling_mma" the tensor-core one
+(csrc/coupling_mma.cu), both launched by `fused_coupling`.
 """
 
 
-def _wrappers():
+def _counters():
+    """kernel name -> (wrapper, name of its count attribute)."""
     from vstnet_tpu_torch.ops import attention, coupling_fused, dwconv
 
-    return {"coupling": coupling_fused.fused_coupling,
-            "transition": coupling_fused.fused_transition,
-            "transition_half": coupling_fused.fused_transition_half,
-            "attention": attention.sr_attention,
-            "dwconv_gelu": dwconv.dwconv3x3_bias_gelu}
+    return {"coupling": (coupling_fused.fused_coupling, "fma_launches"),
+            "coupling_mma": (coupling_fused.fused_coupling, "mma_launches"),
+            "transition": (coupling_fused.fused_transition, "launches"),
+            "transition_half": (coupling_fused.fused_transition_half,
+                                "launches"),
+            "attention": (attention.sr_attention, "launches"),
+            "dwconv_gelu": (dwconv.dwconv3x3_bias_gelu, "launches")}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    wrappers = _wrappers()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    counts["coupling_mma"] = wrappers["coupling"].mma_launches
-    return counts
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    wrappers["coupling"].mma_launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)

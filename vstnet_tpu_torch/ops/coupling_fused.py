@@ -18,10 +18,12 @@ cores because a float32 product there would be TF32.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back from one to the other.
-Each wrapper counts its kernel launches in a plain int attribute
-(`fused_coupling.launches`, of which `fused_coupling.mma_launches` took
-the tensor-core kernel; `fused_transition.launches`,
-`fused_transition_half.launches`).
+Each kernel's launches are counted in a plain int attribute of its wrapper,
+raised where that kernel is launched and nowhere else: K1's two kernels
+apart (`fused_coupling.fma_launches` for `csrc/coupling.cu`,
+`fused_coupling.mma_launches` for `csrc/coupling_mma.cu`;
+`coupling_launches()` is their sum), `fused_transition.launches`,
+`fused_transition_half.launches`.
 """
 
 from __future__ import annotations
@@ -279,19 +281,25 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
             err = lib.vst_coupling_mma(
                 x1.data_ptr(), x2.data_ptr(), pieces.data_ptr(), b1,
                 out.data_ptr(), b, c, m, h, wd, int(inverse), stream)
+            _build.check(err, "fused_coupling (tensor cores)")
+            fused_coupling.mma_launches += 1
         else:
             err = lib.vst_coupling(
                 x1.data_ptr(), x2.data_ptr(), w["flat"].data_ptr(),
                 out.data_ptr(), b, c, m, h, wd, int(inverse),
                 int(x1.dtype == torch.bfloat16), stream)
-    _build.check(err, "fused_coupling")
-    fused_coupling.launches += 1
-    fused_coupling.mma_launches += mma
+            _build.check(err, "fused_coupling (CUDA cores)")
+            fused_coupling.fma_launches += 1
     return out
 
 
-fused_coupling.launches = 0
+fused_coupling.fma_launches = 0
 fused_coupling.mma_launches = 0
+
+
+def coupling_launches() -> int:
+    """Launches of fused_coupling's two kernels together."""
+    return fused_coupling.fma_launches + fused_coupling.mma_launches
 
 
 def fused_transition(a, b, w, inverse: bool = False):
@@ -367,7 +375,7 @@ fused_transition_half.launches = 0
 
 
 def reset_launches() -> None:
-    fused_coupling.launches = 0
+    fused_coupling.fma_launches = 0
     fused_coupling.mma_launches = 0
     fused_transition.launches = 0
     fused_transition_half.launches = 0
