@@ -10,35 +10,40 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
   2. build    build the CUDA kernels from csrc/ (nvcc, one process per
               source, first use); clear TF32 for cuDNN and matmul so the
               float32 plain versions are true float32.
-  3. kernels  each of the five kernels against its plain PyTorch version on
-              the card, at the paths' shapes: K1 coupling and K2 transition
-              (batch 2, forward and inverse, float32 and bf16, float32
-              round trip; K1's bf16 route at C=256 and C=64 is the
-              tensor-core kernel, checked also at sizes with tails and with
-              H or W below its tile, and inverse(forward(x)) against x), K3
-              half-res transition at the 640x360 shapes (the same, plus
-              K2 == K3 on unshuffled streams bit for bit), K4 attention at
+  3. kernels  each kernel against its plain PyTorch version on the card, at
+              the paths' shapes: K1 coupling and K2 transition (batch 2,
+              forward and inverse, float32 on the CUDA-core kernels with a
+              float32 round trip, bf16 on the tensor-core kernels, checked
+              also at sizes with tails and with H or W below the tile, and
+              inverse(forward(x)) against x), K3 half-res transition at the
+              640x360 shapes (the same, plus K2 == K3 on unshuffled streams
+              bit for bit, also at the ragged sizes), K4 attention at
               the SegFormer shapes, one ragged shape and one with M = 4096,
               K5 depthwise conv + GELU at the four MixFFN widths.
   4. global   StyleModel.random_init -> style factors from one 512x512
               style image -> make_fused_video_fn(out_u8=True) on 2 batches
-              of 4 frames in bf16 (K1 on the tensor cores) and one in
-              float32 (K1 on the CUDA cores), with launch counts and the
-              fidelity gates; then the interp variant and ARTISTIC_CONFIG.
+              of 4 frames in bf16 (K1 and K2 on the tensor cores) and one in
+              float32 (both on the CUDA cores), then 2 float32 frames at
+              640x360 with the weights packed for the half-res entry (K3 on
+              the CUDA cores), with launch counts and the fidelity gates;
+              then the interp variant and ARTISTIC_CONFIG.
   5. masked   Segmenter.load(None) (B4 depths) -> prepare_masked_style ->
               make_masked_fused_video_fn(out_u8=True, seg_half=True) on 2
               batches of 4 frames, with launch counts per batch (K1 60,
-              all on the tensor cores, K2 4, K4 3, K5 41) and the gates:
+              and K2 4, all on the tensor cores, K4 3, K5 41) and the gates:
               kernel-route logits against the plain bf16 route's, mask
               agreement on the pixels the plain route decides by more than
               a bf16 ulp, bf16 kernel route against the float32 plain route
               on the same masks; then once
               with the segmenter at 256x256 (no K4: under the routing
-              threshold) and once on 640x360 frames (K3 in place of K2).
+              threshold) and on 640x360 frames through K2 and, with the
+              weights packed for the half-res entry, through K3: the same
+              frames bit for bit.
   6. timings  each kernel against its plain version (and, for K4, against
               scaled_dot_product_attention) at batch 8 in bf16, beside its
-              bound, with the route each K1 shape took; K2 against K3 at
-              the 640x360 shapes; SegFormer-B4
+              bound, with the route each K1 shape took; the CUDA-core K1,
+              K2 and K3 kernels in float32; K2 against K3 with the caller's
+              (un)shuffle at the 512x512 and the 640x360 shapes; SegFormer-B4
               alone; both programs' frames/s and the masked program's
               stages, with CUDA events.
 
@@ -105,6 +110,11 @@ K1_SHAPES = [("stage1", 16, 512, 512, 10), ("stage2", 64, 256, 256, 9),
              ("stage3", 256, 128, 128, 9), ("reduction", 256, 128, 128, 2)]
 K2_SHAPES = [("T1", 16, 512, 512, 1), ("T2", 64, 256, 256, 1)]
 K3_SHAPES = [("T1", 16, 360, 640, 1), ("T2", 64, 180, 320, 1)]
+# (C, full-res H, W) of the tensor-core transition kernel's extra checks:
+# half-res planes that cut the 16x16 tile on both axes, lie below it, are
+# the smallest a reflect pad allows, or fit it exactly
+K2_TAILS = [(64, 100, 136), (16, 100, 136), (64, 6, 90), (16, 4, 4),
+            (16, 64, 32)]
 # (C, H, W) of the tensor-core coupling kernel's extra checks: tiles cut by
 # the image edge, H or W below the 16x16 tile, the 640x360 planes' 45x80
 K1_TAILS = [(256, 20, 36), (256, 7, 45), (256, 45, 80), (64, 40, 36),
@@ -129,7 +139,8 @@ K5_SHAPES = [("s1", 256, 128, 128, 3), ("s2", 512, 64, 64, 8),
 
 # "coupling" is the CUDA-core kernel (float32) and "coupling_mma" the
 # tensor-core kernels (bf16 at C=16, C=64 and C=256) of the one K1 wrapper,
-# fused_coupling
+# fused_coupling; "transition" / "transition_mma" and "transition_half" /
+# "transition_half_mma" are the same pair behind K2's and K3's wrappers
 KERNELS = {
     "coupling": ("vstnet_tpu_torch/csrc/coupling.cu",
                  "vstnet_tpu/ops/coupling_flat.py:523"),
@@ -137,8 +148,12 @@ KERNELS = {
                      "vstnet_tpu/ops/coupling_flat.py:523"),
     "transition": ("vstnet_tpu_torch/csrc/transition.cu",
                    "vstnet_tpu/ops/coupling_flat.py:738"),
+    "transition_mma": ("vstnet_tpu_torch/csrc/transition_mma.cu",
+                       "vstnet_tpu/ops/coupling_flat.py:738"),
     "transition_half": ("vstnet_tpu_torch/csrc/transition.cu",
                         "vstnet_tpu/ops/coupling_flat.py:466"),
+    "transition_half_mma": ("vstnet_tpu_torch/csrc/transition_mma.cu",
+                            "vstnet_tpu/ops/coupling_flat.py:466"),
     "attention": ("vstnet_tpu_torch/csrc/attention.cu",
                   "vstnet_tpu/ops/attention.py:62"),
     "dwconv_gelu": ("vstnet_tpu_torch/csrc/dwconv.cu",
@@ -233,12 +248,12 @@ def bound_coupling(b, c, h, w, esize=2, peak=PEAK_BF16):
                   _branch_flops(b, c, c // 4, c, h * w), peak)
 
 
-def bound_transition(b, c, h, w, streams, esize=2):
+def bound_transition(b, c, h, w, streams, esize=2, peak=PEAK_BF16):
     """K2 (4 streams: x1, x2 read, two outputs written) and K3 (3 streams:
     a, b read, one output written) at a full-res (h, w), C -> C -> C -> 4C
     on the half-res pixels."""
     return _bound(float(streams) * b * c * h * w * esize,
-                  _branch_flops(b, c, c, 4 * c, (h // 2) * (w // 2)))
+                  _branch_flops(b, c, c, 4 * c, (h // 2) * (w // 2)), peak)
 
 
 def bound_attention(g, n, m, d=64, esize=2):
@@ -275,11 +290,64 @@ def _k1_bf16_round_trip(cf, label, x1, x2, wp):
     _check(f"{label} bf16 round trip", back, x1, _bf16_tol(y))
 
 
-def phase_kernels(cf, att, dw, device, gen):
-    """Kernel vs plain on the card; returns the max error per kernel, in
-    bf16 (in float32 for "coupling", the float32 route's K1 kernel)."""
+def _k2_k3_checks(cf, tag, x1, x2, wp, worst):
+    """Both entries of the stride-2 block on one pair of full-res streams:
+    K2 and K3 forward and inverse against their plain versions, the
+    pass-through streams exact, K2(x1, x2) == K3(u(x1), u(x2)) bit for bit
+    both ways, and the round trip (float32: within ROUND_TRIP_TOL; bf16:
+    within the roundings of y and x1, F being recomputed bit for bit)."""
     from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 
+    dt = x1.dtype
+    f32 = dt == torch.float32
+    mma = cf.transition_route(dt, wp["cin"], wp["mid"]) == "mma"
+    k2, k3 = (("transition_mma", "transition_half_mma") if mma
+              else ("transition", "transition_half"))
+    # the CUDA-core kernels' record is their float32 error, as "coupling"'s
+    keep = worst if (mma or f32) else None
+    g0, g1 = cf.fused_transition(x1, x2, wp)
+    r0, r1 = cf.transition_block_plain(x1, x2, wp)
+    i0, i1 = cf.fused_transition(r1, r0, wp, inverse=True)
+    j0, j1 = cf.transition_block_plain(r1, r0, wp, inverse=True)
+    torch.cuda.synchronize()
+    tol = F32_TOL if f32 else _bf16_tol(r1)
+    for what, got, ref in (("fwd", g1, r1), ("inv", i0, j0)):
+        _check(f"K2 {tag} {what}", got, ref, tol, keep, k2)
+    if not (torch.equal(g0, r0) and torch.equal(i1, j1)):
+        raise AssertionError(f"K2 {tag}: (un)shuffled copy differs")
+    b0, b1 = cf.fused_transition(g1, g0, wp, inverse=True)
+    _check(f"K2 {tag} round trip", b0, x1,
+           ROUND_TRIP_TOL if f32 else _bf16_tol(g1))
+    if not torch.equal(b1, x2):
+        raise AssertionError(f"K2 {tag}: x2 not restored")
+
+    a_u = pixel_unshuffle(x1).contiguous()
+    b_u = pixel_unshuffle(x2).contiguous()
+    h0, h1 = cf.fused_transition_half(a_u, b_u, wp)
+    s0, s1 = cf.transition_half_plain(a_u, b_u, wp)
+    m0, m1 = cf.fused_transition_half(h1, h0, wp, inverse=True)
+    n0, n1 = cf.transition_half_plain(h1, h0, wp, inverse=True)
+    torch.cuda.synchronize()
+    for what, got, ref in (("fwd", h1, s1), ("inv", m0, n0)):
+        _check(f"K3 {tag} {what}", got, ref, tol, keep, k3)
+    if not (h0 is b_u and m1 is h0):
+        raise AssertionError(f"K3 {tag}: pass-through stream copied")
+    same = (torch.equal(g0, h0) and torch.equal(g1, h1)
+            and torch.equal(b0, pixel_shuffle(m0))
+            and torch.equal(b1, pixel_shuffle(m1)))
+    print(f"{tag}: K2(x1, x2) == K3(u(x1), u(x2)) bit for bit, forward and "
+          f"inverse: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: K2 and K3 differ")
+    _check(f"K3 {tag} round trip", m0, a_u,
+           ROUND_TRIP_TOL if f32 else _bf16_tol(h1))
+
+
+def phase_kernels(cf, att, dw, device, gen):
+    """Kernel vs plain on the card; returns the max error per kernel, in
+    bf16 for the tensor-core kernels, K4 and K5, and in float32 for
+    "coupling", "transition" and "transition_half", the CUDA-core kernels
+    that the float32 route runs."""
     worst = dict.fromkeys(KERNELS, 0.0)
     bf = torch.bfloat16
     for name, c, h, w, _ in K1_SHAPES:
@@ -319,59 +387,23 @@ def phase_kernels(cf, att, dw, device, gen):
                    f"{'inv' if inv else 'fwd'}", got, ref, _bf16_tol(ref),
                    worst, "coupling_mma")
         _k1_bf16_round_trip(cf, f"K1 tails C={c} {h}x{w}", x1, x2, wp)
-    for name, c, h, w, _ in K2_SHAPES:
+    for name, c, h, w, _ in K2_SHAPES + K3_SHAPES:
         branch = _rand_branch(gen, c, c, 4 * c, device)
         for dt in (torch.float32, bf):
             wp = cf.pack_transition_weights(branch, dt)
             x1 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
             x2 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
-            g0, g1 = cf.fused_transition(x1, x2, wp)
-            r0, r1 = cf.transition_block_plain(x1, x2, wp)
-            i0, i1 = cf.fused_transition(r1, r0, wp, inverse=True)
-            j0, j1 = cf.transition_block_plain(r1, r0, wp, inverse=True)
-            torch.cuda.synchronize()
-            tol = F32_TOL if dt == torch.float32 else _bf16_tol(r1)
-            for what, got, ref in (("fwd", g1, r1), ("inv", i0, j0)):
-                _check(f"K2 {name} C={c} {h}x{w} {_dt(dt)} {what}", got, ref,
-                       tol, worst if dt == bf else None, "transition")
-            if not (torch.equal(g0, r0) and torch.equal(i1, j1)):
-                raise AssertionError(f"K2 {name}: (un)shuffled copy differs")
-            if dt == torch.float32:
-                k0, k1 = cf.fused_transition(g1, g0, wp, inverse=True)
-                _check(f"K2 {name} f32 round trip", k0, x1, ROUND_TRIP_TOL)
-                if not torch.equal(k1, x2):
-                    raise AssertionError(f"K2 {name}: x2 not restored")
-    for name, c, h, w, _ in K3_SHAPES:
-        branch = _rand_branch(gen, c, c, 4 * c, device)
-        for dt in (torch.float32, bf):
-            wp = cf.pack_transition_weights(branch, dt)
-            x1 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
-            x2 = torch.randn((2, c, h, w), generator=gen).to(device, dt)
-            a_u = pixel_unshuffle(x1).contiguous()
-            b_u = pixel_unshuffle(x2).contiguous()
-            g0, g1 = cf.fused_transition_half(a_u, b_u, wp)
-            r0, r1 = cf.transition_half_plain(a_u, b_u, wp)
-            i0, i1 = cf.fused_transition_half(g1, g0, wp, inverse=True)
-            j0, j1 = cf.transition_half_plain(g1, g0, wp, inverse=True)
-            k0, k1 = cf.fused_transition(x1, x2, wp)
-            f0, f1 = cf.fused_transition(k1, k0, wp, inverse=True)
-            torch.cuda.synchronize()
-            tol = F32_TOL if dt == torch.float32 else _bf16_tol(r1)
-            tag = f"K3 {name} C_u={4 * c} {h // 2}x{w // 2} {_dt(dt)}"
-            for what, got, ref in (("fwd", g1, r1), ("inv", i0, j0)):
-                _check(f"{tag} {what}", got, ref, tol,
-                       worst if dt == bf else None, "transition_half")
-            if not (g0 is b_u and i1 is g0):
-                raise AssertionError(f"{tag}: pass-through stream copied")
-            same = (torch.equal(k0, g0) and torch.equal(k1, g1)
-                    and torch.equal(f0, pixel_shuffle(i0))
-                    and torch.equal(f1, pixel_shuffle(i1)))
-            print(f"{tag}: K2(x1, x2) == K3(u(x1), u(x2)) bit for bit, "
-                  f"forward and inverse: {same}")
-            if not same:
-                raise AssertionError(f"{tag}: K2 and K3 differ")
-            if dt == torch.float32:
-                _check(f"{tag} round trip", i0, a_u, ROUND_TRIP_TOL)
+            route = cf.transition_route(dt, c, c)
+            if route != ("mma" if dt == bf else "fma"):
+                raise AssertionError(f"{name} C={c} {_dt(dt)}: route {route}")
+            _k2_k3_checks(cf, f"{name} C={c} {h}x{w} {_dt(dt)} {route}", x1,
+                          x2, wp, worst)
+    for c, h, w in K2_TAILS:
+        wp = cf.pack_transition_weights(
+            _rand_branch(gen, c, c, 4 * c, device), bf)
+        x1 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
+        x2 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
+        _k2_k3_checks(cf, f"tails C={c} {h}x{w} bf16 mma", x1, x2, wp, worst)
     for name, g, n, m in K4_CHECKS:
         q, k, v = (torch.randn(s, generator=gen).to(device, bf)
                    for s in ((g, n, 64), (g, m, 64), (g, m, 64)))
@@ -464,28 +496,43 @@ def phase_global(ops, device, gen, total):
     video32 = make_fused_video_fn(cfg)
     torch.cuda.synchronize()
 
-    def counted(fn, mma):
+    def counted(fn, mma, half=False):
+        """fn() with its launches checked: 60 of K1 and 4 of the stride-2
+        block (30 + 2 per encode and per decode), on the tensor-core
+        kernels (mma) or the CUDA-core ones, through K2 or (half) K3."""
+        want = dict.fromkeys(("coupling", "coupling_mma", "transition",
+                              "transition_mma", "transition_half",
+                              "transition_half_mma"), 0)
+        want["coupling_mma" if mma else "coupling"] = 60
+        want[("transition_half" if half else "transition")
+             + ("_mma" if mma else "")] = 4
         before = ops.launch_counts()
         out = fn()
         after = ops.launch_counts()
-        d = {k: after[k] - before[k] for k in after}
-        if (d["coupling"], d["coupling_mma"], d["transition"]) != (
-                60 - mma, mma, 4):
-            raise AssertionError(f"launches per batch {d}, want 60 of K1 "
-                                 f"({mma} of them coupling_mma, the rest "
-                                 "coupling) and 4 transition (30 + 2 per "
-                                 "encode and per decode)")
+        d = {k: after[k] - before[k] for k in want}
+        if d != want:
+            raise AssertionError(f"launches per batch {d}, want {want}")
         return out
 
     ops.reset_launch_counts()
-    outs = [counted(lambda: video(fast, frames, ls, mu), 60)
+    outs = [counted(lambda: video(fast, frames, ls, mu), True)
             for frames in batches]
-    got32 = counted(lambda: video32(fast32, batches[0], ls32, mu32), 0)
+    got32 = counted(lambda: video32(fast32, batches[0], ls32, mu32), False)
+    # float32 on 640x360 frames with the weights packed for the half-res
+    # entry: the CUDA-core kernel's K3
+    half32 = dict(fast32, stride2_entry="half")
+    wide = _frames(gen, 2, (360, 640), device)
+    wide32 = counted(lambda: video32(half32, wide, ls32, mu32), False,
+                     half=True)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _add(total, counts)
-    print(f"global: 2 bf16 batches and 1 float32 batch of 4 frames, "
-          f"launches {counts}")
+    print(f"global: 2 bf16 batches and 1 float32 batch of 4 frames at "
+          f"512x512, 1 float32 batch of 2 at 640x360 through the half-res "
+          f"entry, launches {counts}")
+    if not torch.equal(wide32, video32(fast32, wide, ls32, mu32)):
+        raise AssertionError("640x360 float32: the half-res entry's frames "
+                             "differ from the full-res entry's")
     for out in outs:
         if out.dtype != torch.uint8 or tuple(out.shape) != (4, 512, 512, 3):
             raise AssertionError(f"output {out.dtype} {tuple(out.shape)}")
@@ -616,9 +663,9 @@ def phase_masked(ops, model, style, device, gen, total):
                                  f"{want}")
         return out, masks
 
-    want = {"coupling": 0, "coupling_mma": 60, "transition": 4,
-            "transition_half": 0,
-            "attention": 3, "dwconv_gelu": 41}
+    want = {"coupling": 0, "coupling_mma": 60, "transition": 0,
+            "transition_mma": 4, "transition_half": 0,
+            "transition_half_mma": 0, "attention": 3, "dwconv_gelu": 41}
     ops.reset_launch_counts()
     outs = [run(video, frames, want, "masked 512x512") for frames in batches]
     torch.cuda.synchronize()
@@ -700,28 +747,40 @@ def phase_masked(ops, model, style, device, gen, total):
     if tuple(m256.shape) != (4, 512, 512) or out.dtype != torch.uint8:
         raise AssertionError(f"seg 256: {tuple(m256.shape)} {out.dtype}")
 
-    # 640x360 frames: half-res widths 320 and 160 take K3, not K2
+    # 640x360 frames (half-res planes 180x320 and 90x160, tile tails on both
+    # axes): K2 as packed, and K3 with the weights packed for the half-res
+    # entry; one block behind two entries, so the frames are the same bits
     wide = _frames(gen, 2, (360, 640), device)
+    fast_half = dict(fast, stride2_entry="half")
     ops.reset_launch_counts()
-    z = rf.encode_fast(fast, wide.to(torch.bfloat16), cfg)
+    z = rf.encode_fast(fast_half, wide.to(torch.bfloat16), cfg)
     enc = ops.launch_counts()
-    rf.decode_fast(fast, z, cfg)
+    rf.decode_fast(fast_half, z, cfg)
     dec = {k: v - enc[k] for k, v in ops.launch_counts().items()}
     for what, d in (("encode", enc), ("decode", dec)):
         if (d["coupling"], d["coupling_mma"], d["transition"],
-                d["transition_half"]) != (0, 30, 0, 2):
+                d["transition_mma"], d["transition_half"],
+                d["transition_half_mma"]) != (0, 30, 0, 0, 0, 2):
             raise AssertionError(f"640x360 {what}: launches {d}")
     ops.reset_launch_counts()
-    out, mw = run(video, wide, dict(want, transition=0, transition_half=4),
-                  "masked 640x360")
+    out, mw = run(video, wide, want, "masked 640x360")
+    before = ops.launch_counts()
+    out_h, mw_h = video(fast_half, seg.net, seg.label_mapping, region, plan,
+                        wide)
+    d = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    if d != dict(want, transition_mma=0, transition_half_mma=4):
+        raise AssertionError(f"masked 640x360 half-res entry: launches {d}")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _add(total, counts)
-    print(f"masked 640x360 batch 2: launches {counts} (K3 2 per encode and "
-          f"2 per decode, K2 0)")
+    print(f"masked 640x360 batch 2, once through each entry: launches "
+          f"{counts} (K2 or K3 2 per encode and 2 per decode)")
     if (tuple(out.shape) != (2, 360, 640, 3)
             or set(torch.unique(mw).tolist()) - style_labels):
         raise AssertionError(f"640x360: {tuple(out.shape)}")
+    if not (torch.equal(out, out_h) and torch.equal(mw, mw_h)):
+        raise AssertionError("640x360: the half-res entry's frames differ "
+                             "from the full-res entry's")
     got, _ = make_masked_fused_video_fn(cfg)(
         fast, seg.net, seg.label_mapping, region, plan, wide)
     p = _psnr(got, _plain_masked(model, style, smask, wide, mw))
@@ -744,11 +803,11 @@ def _line(kernel, name, shape, tk, tp, bound, lib=None, dtype="bf16"):
 
 
 def phase_timings(cf, att, dw, device, gen, batch=8):
-    """Per-launch times at batch 8 in bf16. Returns per kernel
-    {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}: the sums over
-    the launches of one encode (K1, by kernel, and K2 at 512x512; K3 at
-    640x360) or of
-    one segment call at 512x512 (K4, K5)."""
+    """Per-launch times at batch 8, in bf16 and, for the CUDA-core K1, K2
+    and K3 kernels, in float32. Returns per kernel {"ms", "plain_ms",
+    "bound_ms", "bound_by", "library_ms"}: the sums over the launches of
+    one encode (K1 and K2, by kernel, at 512x512; K3 at 640x360) or of one
+    segment call at 512x512 (K4, K5)."""
     from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 
     bf = torch.bfloat16
@@ -792,49 +851,61 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         _line("coupling", name, f"C={c} {h}x{w} B={batch} route {route}",
               tk, tp, bound, dtype="float32")
         tally("coupling", count, tk, tp, bound)
-    for name, c, h, w, count in K2_SHAPES:
-        wp = cf.pack_transition_weights(
-            _rand_branch(gen, c, c, 4 * c, device), bf)
-        x1, x2 = pair(c, h, w)
-        tk, tp = _time_pair(lambda: cf.fused_transition(x1, x2, wp),
-                            lambda: cf.transition_block_plain(x1, x2, wp))
-        bound = bound_transition(batch, c, h, w, 4)
-        _line("transition", name, f"C={c} {h}x{w} B={batch}", tk, tp, bound)
-        tally("transition", count, tk, tp, bound)
-    # K3 at the 640x360 shapes, and both entries on the same frames: the
-    # caller's pixel (un)shuffle copies are part of the half-res entry
-    for name, c, h, w, count in K3_SHAPES:
-        wp = cf.pack_transition_weights(
-            _rand_branch(gen, c, c, 4 * c, device), bf)
-        x1, x2 = pair(c, h, w)
-        a_u = pixel_unshuffle(x1).contiguous()
-        b_u = pixel_unshuffle(x2).contiguous()
-        tk, tp = _time_pair(
-            lambda: cf.fused_transition_half(a_u, b_u, wp),
-            lambda: cf.transition_half_plain(a_u, b_u, wp))
-        bound = bound_transition(batch, c, h, w, 3)
-        _line("transition_half", name,
-              f"C_u={4 * c} {h // 2}x{w // 2} B={batch}", tk, tp, bound)
-        tally("transition_half", count, tk, tp, bound)
+    # K2 at the 512x512 shapes and K3 at the 640x360 shapes: the tensor-core kernel in bf16 and the CUDA-core
+    # kernel in float32 (TF32 off on both sides); then both entries on the
+    # same frames in bf16, the caller's pixel (un)shuffle copies being part
+    # of the half-res entry
+    f32 = torch.float32
+    for shapes, half in ((K2_SHAPES, False), (K3_SHAPES, True)):
+        for name, c, h, w, count in shapes:
+            branch = _rand_branch(gen, c, c, 4 * c, device)
+            x1, x2 = pair(c, h, w)
+            for dt, peak, iters in ((bf, PEAK_BF16, 10), (f32, PEAK_F32, 5)):
+                wp = cf.pack_transition_weights(branch, dt)
+                xa, xb = x1.to(dt), x2.to(dt)
+                if half:
+                    xa = pixel_unshuffle(xa).contiguous()
+                    xb = pixel_unshuffle(xb).contiguous()
+                    kernel, plain = (cf.fused_transition_half,
+                                     cf.transition_half_plain)
+                    shape = f"C_u={4 * c} {h // 2}x{w // 2} B={batch}"
+                else:
+                    kernel, plain = (cf.fused_transition,
+                                     cf.transition_block_plain)
+                    shape = f"C={c} {h}x{w} B={batch}"
+                tk, tp = _time_pair(lambda: kernel(xa, xb, wp),
+                                    lambda: plain(xa, xb, wp), iters=iters)
+                bound = bound_transition(batch, c, h, w, 3 if half else 4,
+                                         esize=xa.element_size(), peak=peak)
+                route = cf.transition_route(dt, c, c)
+                key = ("transition_half" if half else "transition") + (
+                    "_mma" if route == "mma" else "")
+                _line(key, name, f"{shape} route {route}", tk, tp, bound,
+                      dtype=_dt(dt))
+                tally(key, count, tk, tp, bound)
 
-        def k3_forward():
-            return cf.fused_transition_half(
-                pixel_unshuffle(x1).contiguous(),
-                pixel_unshuffle(x2).contiguous(), wp)
+            wp = cf.pack_transition_weights(branch, bf)
+            a_u = pixel_unshuffle(x1).contiguous()
+            b_u = pixel_unshuffle(x2).contiguous()
 
-        def k3_inverse():
-            y0, y1 = cf.fused_transition_half(a_u, b_u, wp, inverse=True)
-            return (pixel_shuffle(y0).contiguous(),
-                    pixel_shuffle(y1).contiguous())
+            def k3_forward():
+                return cf.fused_transition_half(
+                    pixel_unshuffle(x1).contiguous(),
+                    pixel_unshuffle(x2).contiguous(), wp)
 
-        f3, f2 = _time_pair(k3_forward,
-                            lambda: cf.fused_transition(x1, x2, wp))
-        i3, i2 = _time_pair(
-            k3_inverse,
-            lambda: cf.fused_transition(a_u, b_u, wp, inverse=True))
-        print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: forward "
-              f"K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; inverse K2 "
-              f"{i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
+            def k3_inverse():
+                y0, y1 = cf.fused_transition_half(a_u, b_u, wp, inverse=True)
+                return (pixel_shuffle(y0).contiguous(),
+                        pixel_shuffle(y1).contiguous())
+
+            f3, f2 = _time_pair(k3_forward,
+                                lambda: cf.fused_transition(x1, x2, wp))
+            i3, i2 = _time_pair(
+                k3_inverse,
+                lambda: cf.fused_transition(a_u, b_u, wp, inverse=True))
+            print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: "
+                  f"forward K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; "
+                  f"inverse K2 {i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
     for name, g, n, m, count in K4_SHAPES + [K4_UNROUTED + (0,)]:
         g = g * batch if name in ("512 s1", "256 s1") else g
         q, k, v = (torch.randn(s, generator=gen).to(device, bf)
@@ -1003,16 +1074,18 @@ def main():
          "replaces": KERNELS[k][1], "launches": total[k],
          "max_abs_err": worst[k], **rec[k]} for k in KERNELS]}
     print("kernels: launches are those of the main paths' runs (global 2 "
-          "bf16 batches and 1 float32 batch, masked 2 batches, seg 256 and "
-          "640x360 one each); ms, plain_ms, bound_ms and library_ms are "
-          "sums over the launches of one encode at B=8 (coupling_mma 30 "
-          "and transition 2 in bf16 at 512x512; coupling, the float32 "
-          "route's kernel, 30 in float32; transition_half 2 in bf16 at "
-          "640x360) or of one segment call at 512x512 B=8 in bf16 "
+          "bf16 batches and 1 float32 batch at 512x512 and 1 float32 batch "
+          "at 640x360 through the half-res entry, masked 2 batches, seg "
+          "256 one and 640x360 one through each stride-2 entry); ms, "
+          "plain_ms, bound_ms and library_ms are sums over the launches of one encode at B=8 (coupling_mma 30 "
+          "and transition_mma 2 in bf16 at 512x512, transition_half_mma 2 "
+          "in bf16 at 640x360; coupling, transition and transition_half, "
+          "the float32 route's kernels, 30, 2 and 2 in float32 at the same "
+          "sizes) or of one segment call at 512x512 B=8 in bf16 "
           "(attention 3, dwconv_gelu 41); bound_ms sums each launch's "
           "bound and bound_by names the kind that holds the larger share; "
           "max_abs_err is the largest kernel-vs-plain error of phase 3, in "
-          "bf16 (coupling: in float32)")
+          "bf16 (coupling, transition, transition_half: in float32)")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

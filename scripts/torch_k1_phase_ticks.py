@@ -1,16 +1,19 @@
-"""Where a block of the tensor-core coupling kernel (K1) spends its cycles.
+"""Where a block of the tensor-core conv kernels spends its cycles: the
+coupling kernel (K1) and the stride-2 transition kernel (K2, K3).
 
     python3 scripts/torch_k1_phase_ticks.py        (one CUDA card, nvcc)
 
 Adds -DVST_PHASE_TICKS to the flags of ops/_build.py before the first
-build, so the port's own build and wrapper run a library (named by its own
-hash) in which every warp of csrc/coupling_mma.cu records clock64() at its
-phase boundaries. Runs fused_coupling at the main path's three shapes
-(C=256 128x128, C=64 256x256, C=16 512x512, bf16, batch 8), checks the
-output against the plain version and prints the kernel's time (CUDA events,
-with the recording off) and the mean cycles per phase over all warps of all
-blocks. Cycles are the SM clock's; the phases of a warp include the time it
-waits at the block's barriers.
+build, so the port's own build and wrappers run a library (named by its own
+hash) in which every warp of csrc/coupling_mma.cu and
+csrc/transition_mma.cu records clock64() at its phase boundaries. Runs
+fused_coupling at the main path's three shapes (C=256 128x128, C=64
+256x256, C=16 512x512) and fused_transition / fused_transition_half,
+forward and inverse, at its two (T1 C=16 512x512, T2 C=64 256x256), all in
+bf16 at batch 8; checks each output against the plain version and prints
+the kernel's time (CUDA events, with the recording off) and the mean cycles
+per phase over all warps of all blocks. Cycles are the SM clock's; the
+phases of a warp include the time it waits at the block's barriers.
 """
 
 from __future__ import annotations
@@ -27,17 +30,67 @@ sys.path.insert(0, str(ROOT))
 
 from vstnet_tpu_torch.ops import _build  # noqa: E402
 from vstnet_tpu_torch.ops import coupling_fused as cf  # noqa: E402
+from vstnet_tpu_torch.ops.coupling import pixel_unshuffle  # noqa: E402
 
 WIDE = ("stage first x chunk", "conv1 (stages the other chunks)",
         "store h1", "conv2 + store h2", "conv3 + output")
 NARROW = ("stage x window, load weights", "conv1 + store h1",
           "conv2 + store h2", "conv3 + output")
-SHAPES = ((256, 128, WIDE), (64, 256, WIDE), (16, 512, NARROW))
+TRANSITION = ("stage first x chunk (with its pass-through)",
+              "conv1 (stages the other chunks)", "store h1",
+              "conv2 + store h2", "conv3 + output")
+K1_SHAPES = ((256, 128, WIDE), (64, 256, WIDE), (16, 512, NARROW))
+K2_SHAPES = (("T1", 16, 512), ("T2", 64, 256))
 BATCH = 8
-# the buffer's row per block (csrc/coupling_mma.cu: VST_TICKS_END) and the
-# smallest tile of any width, for an upper bound on the blocks
+# the buffer's row per block (csrc/conv_mma.cuh: VST_TICKS_END) and the
+# smallest tile of any kernel, for an upper bound on the blocks
 ROW = (16, 8)
 MIN_TILE = 16
+
+
+def _branch(gen, dev, widths):
+    return tuple(
+        ((torch.randn((co, ci, 3, 3), generator=gen) * 0.05).to(dev),
+         (torch.randn((co,), generator=gen) * 0.1).to(dev))
+        for ci, co in widths)
+
+
+def _report(label, run, plain, set_ticks, launches, hw, phases):
+    """Time run(), then one launch of it with the recording on; `launches`
+    reads the count of the tensor-core kernel that run() must take."""
+    dev = torch.device("cuda:0")
+    for _ in range(3):
+        run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 10
+
+    # rows the kernel does not write stay at -1
+    most = BATCH * (-(-hw // MIN_TILE)) ** 2
+    ticks = torch.full((most, *ROW), -1, dtype=torch.int64, device=dev)
+    set_ticks(ticks.data_ptr())
+    before = launches()
+    out = run()
+    torch.cuda.synchronize()
+    set_ticks(None)
+    if launches() != before + 1:
+        sys.exit(f"{label}: not routed to the tensor-core kernel")
+    err = float((out.float() - plain().float()).abs().max())
+    last = len(phases)
+    used = ticks[ticks[:, 0, last] >= 0]
+    warps = int((used[0, :, last] >= 0).sum())
+    mean = used[:, :warps, :last + 1].double().mean(dim=(0, 1)).tolist()
+    print(f"{label} B={BATCH} bf16: {ms:.3f} ms, {used.shape[0]} blocks of "
+          f"{warps} warps, {mean[last]:.0f} cycles a block, max abs err vs "
+          f"plain {err:.3e}")
+    for name, t0, t1 in zip(phases, mean[:-1], mean[1:]):
+        print(f"  {name}: {t1 - t0:.0f} cycles "
+              f"({100 * (t1 - t0) / mean[last]:.1f} %)")
 
 
 def main():
@@ -49,53 +102,48 @@ def main():
         check=True).stdout.strip())
     _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DVST_PHASE_TICKS")
     lib = _build.load()
-    lib.vst_coupling_mma_set_ticks.argtypes = [ctypes.c_void_p]
+    for name in ("vst_coupling_mma_set_ticks", "vst_transition_mma_set_ticks"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
-    for c, hw, phases in SHAPES:
+
+    def pair(c, hw):
+        return tuple(torch.randn((BATCH, c, hw, hw), generator=gen).to(dev, bf)
+                     for _ in range(2))
+
+    for c, hw, phases in K1_SHAPES:
         m = c // 4
-        branch = tuple(
-            ((torch.randn((co, ci, 3, 3), generator=gen) * 0.05).to(dev),
-             (torch.randn((co,), generator=gen) * 0.1).to(dev))
-            for ci, co in ((c, m), (m, m), (m, c)))
-        wp = cf.pack_coupling_weights(branch, bf)
-        x1, x2 = (torch.randn((BATCH, c, hw, hw), generator=gen).to(dev, bf)
-                  for _ in range(2))
+        wp = cf.pack_coupling_weights(
+            _branch(gen, dev, ((c, m), (m, m), (m, c))), bf)
+        x1, x2 = pair(c, hw)
+        _report(f"K1 C={c} {hw}x{hw}",
+                lambda: cf.fused_coupling(x1, x2, wp),
+                lambda: cf.coupling_block_plain(x1, x2, wp),
+                lib.vst_coupling_mma_set_ticks,
+                lambda: cf.fused_coupling.mma_launches, hw, phases)
 
-        for _ in range(3):
-            cf.fused_coupling(x1, x2, wp)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(10):
-            cf.fused_coupling(x1, x2, wp)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / 10
-
-        # rows the kernel does not write stay at -1
-        most = BATCH * (-(-hw // MIN_TILE)) ** 2
-        ticks = torch.full((most, *ROW), -1, dtype=torch.int64, device=dev)
-        lib.vst_coupling_mma_set_ticks(ticks.data_ptr())
-        before = cf.fused_coupling.mma_launches
-        out = cf.fused_coupling(x1, x2, wp)
-        torch.cuda.synchronize()
-        lib.vst_coupling_mma_set_ticks(None)
-        if cf.fused_coupling.mma_launches != before + 1:
-            sys.exit(f"C={c}: not routed to the tensor-core kernel")
-        ref = cf.coupling_block_plain(x1, x2, wp)
-        err = float((out.float() - ref.float()).abs().max())
-        last = len(phases)
-        used = ticks[ticks[:, 0, last] >= 0]
-        warps = int((used[0, :, last] >= 0).sum())
-        mean = used[:, :warps, :last + 1].double().mean(dim=(0, 1)).tolist()
-        print(f"K1 C={c} {hw}x{hw} B={BATCH} bf16: {ms:.3f} ms, "
-              f"{used.shape[0]} blocks of {warps} warps, {mean[last]:.0f} "
-              f"cycles a block, max abs err vs plain {err:.3e}")
-        for name, t0, t1 in zip(phases, mean[:-1], mean[1:]):
-            print(f"  {name}: {t1 - t0:.0f} cycles "
-                  f"({100 * (t1 - t0) / mean[last]:.1f} %)")
+    for name, c, hw in K2_SHAPES:
+        wp = cf.pack_transition_weights(
+            _branch(gen, dev, ((c, c), (c, c), (c, 4 * c))), bf)
+        x1, x2 = pair(c, hw)
+        a_u = pixel_unshuffle(x1).contiguous()
+        b_u = pixel_unshuffle(x2).contiguous()
+        # [1] of a forward and [0] of an inverse is the computed stream
+        for what, fn, plain, args, inverse in (
+                ("K2 forward", cf.fused_transition,
+                 cf.transition_block_plain, (x1, x2), False),
+                ("K2 inverse", cf.fused_transition,
+                 cf.transition_block_plain, (a_u, b_u), True),
+                ("K3 forward", cf.fused_transition_half,
+                 cf.transition_half_plain, (a_u, b_u), False),
+                ("K3 inverse", cf.fused_transition_half,
+                 cf.transition_half_plain, (a_u, b_u), True)):
+            _report(f"{what} {name} C={c} {hw}x{hw}",
+                    lambda: fn(*args, wp, inverse=inverse)[not inverse],
+                    lambda: plain(*args, wp, inverse=inverse)[not inverse],
+                    lib.vst_transition_mma_set_ticks,
+                    lambda: fn.mma_launches, hw, TRANSITION)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ tensor-core kernels sum in another order than the plain versions, so bit
 identity is not expected); the float32 round trip through a kernel within
 1e-5 of the output's scale; the bf16 round trip through the tensor-core
 coupling kernel within 2 bf16 ulps of the stream's scale (F cancels bit
-for bit, the two roundings of y and x1 remain).
+for bit, the two roundings of y and x1 remain); the same for the
+tensor-core transition kernel.
 The attention kernel (K4) rounds its probabilities to bf16 before P.V, so
 a probability near a rounding boundary may flip; with M keys of weight
 <= 1/M each that moves the output by far less than one bf16 ulp of its
@@ -125,6 +126,15 @@ def test_coupling_mma_forward_then_inverse(dev, gen, c, h, w):
     assert torch.equal(f_fwd, -f_inv)
 
 
+def _transition_counts():
+    """Launches of K2's and K3's kernels: (K2 CUDA cores, K2 tensor cores,
+    K3 CUDA cores, K3 tensor cores)."""
+    return [cf.fused_transition.fma_launches,
+            cf.fused_transition.mma_launches,
+            cf.fused_transition_half.fma_launches,
+            cf.fused_transition_half.mma_launches]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,h,w", [(16, 36, 44), (64, 20, 24), (4, 4, 4)])
 def test_transition_kernel_matches_plain(dev, gen, dt, c, h, w):
@@ -153,7 +163,7 @@ def test_half_res_transition_kernel(dev, gen, dt, c, h, w):
     x2 = torch.randn((2, c, h, w), device=dev).to(dt)
     a_u = pixel_unshuffle(x1).contiguous()
     b_u = pixel_unshuffle(x2).contiguous()
-    before = cf.fused_transition_half.launches
+    before = _transition_counts()
     g0, g1 = cf.fused_transition_half(a_u, b_u, wp)
     r0, r1 = cf.transition_half_plain(a_u, b_u, wp)
     assert g0 is b_u and torch.equal(r0, b_u)
@@ -166,9 +176,73 @@ def test_half_res_transition_kernel(dev, gen, dt, c, h, w):
     assert _err(i0, j0) <= _tol(j0, dt)
     f0, f1 = cf.fused_transition(k1, k0, wp, inverse=True)
     assert torch.equal(pixel_shuffle(i0), f0) and torch.equal(f1, x2)
-    assert cf.fused_transition_half.launches == before + 2
+    # two launches of each entry, all on the kernel the route names
+    mma = cf.transition_route(dt, c, c) == "mma"
+    assert [n - b for n, b in zip(_transition_counts(), before)] == (
+        [0, 2, 0, 2] if mma else [2, 0, 2, 0])
     if dt == torch.float32:
         assert _err(i0, a_u) <= 1e-5 * max(float(g1.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("c", [64, 16])
+@pytest.mark.parametrize("h,w", [(100, 136), (4, 4), (34, 70), (6, 90),
+                                 (64, 32), (36, 4)])
+def test_transition_mma_kernel(dev, gen, c, h, w):
+    """The tensor-core transition kernel (bf16, C = M = 64 and 16) at sizes
+    whose half-res planes cut the 16x16 tile on both axes, fit it exactly or
+    lie below it: K2 forward and inverse against the plain version, the
+    pass-through streams exact, K2 == K3 on unshuffled streams bit for bit,
+    every launch counted on the tensor-core kernel, the launch
+    deterministic, and inverse(forward(x1)) back at x1 within the roundings
+    of y and x1 (F is recomputed bit for bit)."""
+    bf = torch.bfloat16
+    assert cf.transition_route(bf, c, c) == "mma"
+    wp = cf.pack_transition_weights(_weights(gen, c, c, 4 * c, dev), bf)
+    x1 = torch.randn((2, c, h, w), device=dev).to(bf)
+    x2 = torch.randn((2, c, h, w), device=dev).to(bf)
+    before = _transition_counts()
+    g0, g1 = cf.fused_transition(x1, x2, wp)
+    r0, r1 = cf.transition_block_plain(x1, x2, wp)
+    assert torch.equal(g0, r0)
+    assert _err(g1, r1) <= _tol(r1, bf)
+    i0, i1 = cf.fused_transition(r1, r0, wp, inverse=True)
+    j0, j1 = cf.transition_block_plain(r1, r0, wp, inverse=True)
+    assert torch.equal(i1, j1) and torch.equal(i1, x2)
+    assert _err(i0, j0) <= _tol(j0, bf)
+    assert torch.equal(g1, cf.fused_transition(x1, x2, wp)[1])
+    back, x2_back = cf.fused_transition(g1, g0, wp, inverse=True)
+    assert torch.equal(x2_back, x2)
+    assert _err(back, x1) <= _tol(g1, bf)
+    a_u = pixel_unshuffle(x1).contiguous()
+    b_u = pixel_unshuffle(x2).contiguous()
+    k0, k1 = cf.fused_transition_half(a_u, b_u, wp)
+    assert k0 is b_u and torch.equal(k1, g1)
+    assert _err(k1, cf.transition_half_plain(a_u, b_u, wp)[1]) <= _tol(r1, bf)
+    m0, m1 = cf.fused_transition_half(g1, g0, wp, inverse=True)
+    assert m1 is g0 and torch.equal(pixel_shuffle(m0), back)
+    assert [n - b for n, b in zip(_transition_counts(), before)] == [
+        0, 4, 0, 2]
+    # F itself is the same bits both ways
+    zero = torch.zeros_like(a_u)
+    assert torch.equal(cf.fused_transition_half(zero, b_u, wp)[1],
+                       -cf.fused_transition_half(zero, b_u, wp,
+                                                 inverse=True)[0])
+
+
+def test_transition_mma_widths_and_float32_stay_on_cuda_cores(dev, gen):
+    """bf16 at a width the tensor-core kernel is not built for, and float32
+    at one it is, launch csrc/transition.cu."""
+    for dt, c in ((torch.bfloat16, 32), (torch.float32, 64)):
+        wp = cf.pack_transition_weights(_weights(gen, c, c, 4 * c, dev), dt)
+        assert "mma" not in wp
+        x1 = torch.randn((1, c, 12, 20), device=dev).to(dt)
+        x2 = torch.randn((1, c, 12, 20), device=dev).to(dt)
+        before = _transition_counts()
+        _, g1 = cf.fused_transition(x1, x2, wp)
+        assert _err(g1, cf.transition_block_plain(x1, x2, wp)[1]) <= _tol(
+            g1, dt)
+        assert [n - b for n, b in zip(_transition_counts(), before)] == [
+            1, 0, 0, 0]
 
 
 @pytest.mark.parametrize("g,n,m", [(2, 200, 64), (3, 70, 36), (1, 130, 600),
@@ -278,20 +352,51 @@ def test_wrappers_reject_bad_inputs(dev, gen):
 
 @pytest.mark.parametrize("w", [32, 56])
 def test_fast_path_on_card_matches_standard_path(dev, w):
+    """Float32 fast path against the standard path, through the entry the
+    weights are packed for: K2 by default, K3 with stride2_entry="half";
+    both give the same bits."""
     cfg = RevResNetConfig(n_blocks=(2, 2, 2))
     net = RevResNet(cfg, device=dev).init_weights(
         torch.Generator().manual_seed(0))
-    fast = rf.pack_revresnet(net)
     x = torch.rand((2, 32, w, 3), generator=torch.Generator().manual_seed(1))
     x = x.to(dev)
-    cf.reset_launches()
-    z = rf.encode_fast(fast, x, cfg)
-    # half-res widths 16 and 8 (or 28 and 14) are no multiples of 128: both
-    # stride-2 blocks take the half-res entry (K3)
-    assert (cf.fused_coupling.fma_launches, cf.fused_transition.launches,
-            cf.fused_transition_half.launches) == (6, 0, 2)
-    assert _err(z, net.encode(x)) <= 1e-5
-    back = rf.decode_fast(fast, z, cfg)
-    assert cf.fused_transition_half.launches == 4
-    assert _err(back, x) <= 1e-5
-    assert _err(back, net.decode(z)) <= 1e-5
+    latents = []
+    for entry, enc, dec in (("full", [2, 0, 0, 0], [4, 0, 0, 0]),
+                            ("half", [0, 0, 2, 0], [0, 0, 4, 0])):
+        fast = rf.pack_revresnet(net, stride2_entry=entry)
+        cf.reset_launches()
+        z = rf.encode_fast(fast, x, cfg)
+        assert cf.fused_coupling.fma_launches == 6
+        assert _transition_counts() == enc
+        assert _err(z, net.encode(x)) <= 1e-5
+        back = rf.decode_fast(fast, z, cfg)
+        assert _transition_counts() == dec
+        assert _err(back, x) <= 1e-5
+        assert _err(back, net.decode(z)) <= 1e-5
+        latents.append(z)
+    assert torch.equal(*latents)
+
+
+def test_fast_path_bf16_takes_the_tensor_core_kernels(dev):
+    """PHOTO widths at depth 1 in bf16: every block of encode and decode
+    runs on a tensor-core kernel, through either stride-2 entry, and both
+    entries give the same bits."""
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    x = torch.rand((2, 72, 104, 3),
+                   generator=torch.Generator().manual_seed(1)).to(dev)
+    outs = []
+    for entry, want in (("full", [0, 4, 0, 0]), ("half", [0, 0, 0, 4])):
+        fast = rf.pack_revresnet(net, torch.bfloat16, stride2_entry=entry)
+        cf.reset_launches()
+        z = rf.encode_fast(fast, x.bfloat16(), cfg)
+        back = rf.decode_fast(fast, z, cfg)
+        assert _transition_counts() == want
+        assert cf.fused_coupling.fma_launches == 0
+        assert cf.fused_coupling.mma_launches > 0
+        mse = float(((back.float() - x) ** 2).mean())
+        assert 10 * np.log10(1.0 / mse) > 45.0
+        outs.append((z, back))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])

@@ -146,9 +146,11 @@ def test_half_res_transition_plain_matches_jax_kernel(rng, c, mid, h, w,
 
     th = 4 if padded else 8
     wp = cf.pack_transition_weights(_torch_weights(branch))
-    before = cf.fused_transition_half.launches
+    before = (cf.fused_transition_half.fma_launches,
+              cf.fused_transition_half.mma_launches)
     t0, t1 = cf.fused_transition_half(x1u, x2u, wp)
-    assert t0 is x2u and cf.fused_transition_half.launches == before
+    assert t0 is x2u and before == (cf.fused_transition_half.fma_launches,
+                                    cf.fused_transition_half.mma_launches)
     want = from_flat(cflat.fused_transition_flat(
         to_flat(x1u), to_flat(x2u), packed_j, hh, wh, th=th, interpret=True,
         padded=padded))
@@ -186,14 +188,44 @@ def test_full_res_transition_equals_half_res_on_unshuffled(rng, dt):
 
 @pytest.mark.parametrize("w_half,half", [(16, True), (128, False),
                                          (160, True), (256, False)])
-def test_half_res_entry_rule(w_half, half):
-    """The fast path takes K3 exactly where the JAX package takes its
-    half-res entry: a half-res width that is no multiple of 128."""
+def test_half_res_entry_rule(w_half, half, monkeypatch):
+    """The JAX package takes its half-res entry where the half-res width is
+    no multiple of 128 lanes. The port keeps no such rule (a TPU reason; on
+    an H100 K2 won at every size measured): at each of these widths every
+    stride-2 block takes K2, or K3 where the weights were packed with
+    stride2_entry="half", and both entries give the same latent."""
     import vstnet_tpu.models.revresnet_fast as jrf
+    from vstnet_tpu_torch.config import RevResNetConfig
     from vstnet_tpu_torch.models import revresnet_fast as rf
+    from vstnet_tpu_torch.models.revresnet import RevResNet
 
-    assert rf._half_res_entry(w_half) is half
     assert (jrf._tr_full_th(64, w_half, 64) is None) is half
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    calls = []
+    for name in ("fused_transition", "fused_transition_half"):
+        def counted(*args, _fn=getattr(rf, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(rf, name, counted)
+    x = torch.rand((1, 8, 2 * w_half, 3),
+                   generator=torch.Generator().manual_seed(1))
+    latents = {}
+    for entry, fn in (("full", "fused_transition"),
+                      ("half", "fused_transition_half")):
+        fast = rf.pack_revresnet(net, stride2_entry=entry)
+        del calls[:]
+        z = rf.encode_fast(fast, x, cfg)
+        back = rf.decode_fast(fast, z, cfg)
+        assert calls == [fn] * 4
+        np.testing.assert_allclose(back.numpy(), x.numpy(), atol=1e-5)
+        latents[entry] = z
+    assert torch.equal(latents["full"], latents["half"])
+    assert rf.pack_revresnet(net)["stride2_entry"] == "full"
+    with pytest.raises(ValueError):
+        rf.pack_revresnet(net, stride2_entry="auto")
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 4, 6), (1, 12, 8, 2)])
@@ -386,3 +418,163 @@ def test_coupling_route(dtype, c, m, route):
     assert cf.coupling_route(dtype, c, m) == route
     assert ((c, m) in cf.MMA_WIDTHS) == (
         cf.coupling_route(torch.bfloat16, c, m) == "mma")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core route of K2 and K3: weight pieces and routing
+# ---------------------------------------------------------------------------
+
+def _bf16_transition_branch(rng, c, m):
+    """A stride-2 branch (C -> M -> M -> 4C) of bf16-representable values,
+    scaled by fan-in (0.2 at a fan-in of 8 channels) so that C = 64 keeps
+    the unit-scale activations the float32 tolerance is stated for."""
+    branch = _branch_np(rng, c, m, 4 * c)
+    for conv in branch.values():
+        cin = conv["w"].shape[2]
+        conv["w"] = conv["w"] * np.float32(np.sqrt(8.0 / cin))
+        for k in conv:
+            conv[k] = torch.from_numpy(conv[k]).bfloat16().float().numpy()
+    return branch
+
+
+@pytest.mark.parametrize("c,m", [(64, 64), (16, 16)])
+def test_transition_mma_pack_holds_the_plain_weights(rng, c, m):
+    """unpack_transition_mma(pack_transition_mma(w)) is exactly the
+    bf16-rounded weights of _pack's "w"; the pieces are [tap][16 ci][co],
+    conv1 and conv2 by input chunk, conv3 by output chunk of 64 and then
+    input chunk."""
+    wp = cf.pack_transition_weights(
+        _torch_weights(_branch_np(rng, c, m, 4 * c)), torch.bfloat16)
+    pieces = wp["mma"]
+    assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
+    assert pieces.numel() == 9 * m * (c + m + 4 * c)
+    unpacked = cf.unpack_transition_mma(pieces, c, m)
+    for got, (want, _) in zip(unpacked, wp["w"]):
+        assert got.shape == want.shape
+        assert bool((got == want).all())
+        assert torch.equal(want, want.bfloat16().float())
+    assert torch.equal(cf.pack_transition_mma(wp["w"]), pieces)
+    # conv1, last input chunk of 16, tap (1, 2), ci 3 of the chunk, co 5
+    w1 = wp["w"][0][0]
+    p1 = pieces[: 9 * c * m].float().reshape(c // 16, 9, 16, m)
+    assert float(p1[-1, 5, 3, 5]) == float(w1[5, c - 16 + 3, 1, 2])
+    # conv2 follows conv1: first chunk, tap (2, 0), ci 7, co 1
+    w2 = wp["w"][1][0]
+    p2 = pieces[9 * c * m: 9 * m * (c + m)].float().reshape(m // 16, 9, 16, m)
+    assert float(p2[0, 6, 7, 1]) == float(w2[1, 7, 2, 0])
+    # conv3, last output chunk of 64 (phase p = q = 1), last input chunk
+    w3 = wp["w"][2][0]
+    p3 = pieces[9 * m * (c + m):].float().reshape(4 * c // 64, m // 16, 9,
+                                                  16, 64)
+    assert float(p3[-1, -1, 7, 2, 9]) == float(
+        w3[4 * c - 64 + 9, m - 16 + 2, 2, 1])
+    # float32 weights and widths the kernel is not built for carry no pieces
+    assert "mma" not in cf.pack_transition_weights(
+        _torch_weights(_branch_np(rng, c, m, 4 * c)))
+    assert "mma" not in cf.pack_transition_weights(
+        _torch_weights(_branch_np(rng, 32, 32, 128)), torch.bfloat16)
+
+
+@pytest.mark.parametrize("c,m", [(64, 64), (16, 16)])
+def test_transition_mma_unpacked_weights_match_jax_kernels(rng, c, m):
+    """transition_block_plain and transition_half_plain on the weights
+    recovered from the bf16 pieces against fused_transition_full and
+    fused_transition_flat of the JAX package on the same
+    (bf16-representable) weights, in float32, forward and inverse: what the
+    tensor-core kernel is given is what the JAX package computes with.
+    atol 2e-5: float32 roundoff of unit-scale outputs summed in another
+    order."""
+    h, w, th = 32, 256, 8                      # full-res; half-res 16 x 128
+    hh, wh, cu = h // 2, w // 2, 4 * c
+    branch = _bf16_transition_branch(rng, c, m)
+    packed_j = cflat.pack_transition_weights_flat(_jax_branch(branch))
+    wp = cf.pack_transition_weights(_torch_weights(branch), torch.bfloat16)
+    recovered = dict(wp, w=tuple(
+        (wt.contiguous(), b) for wt, (_, b) in zip(
+            cf.unpack_transition_mma(wp["mma"], c, m), wp["w"])))
+    x1 = rng.standard_normal((1, c, h, w)).astype(np.float32)
+    x2 = rng.standard_normal((1, c, h, w)).astype(np.float32)
+
+    # K2: full-res streams in, (u(x2), F(x2) + u(x1)) out, and back
+    j0, j1 = cflat.fused_transition_full(jnp.asarray(x1), jnp.asarray(x2),
+                                         packed_j, hh, wh, th=th,
+                                         interpret=True)
+    t0, t1 = cf.transition_block_plain(torch.from_numpy(x1),
+                                       torch.from_numpy(x2), recovered)
+    np.testing.assert_array_equal(t0.numpy().reshape(1, cu, -1),
+                                  np.asarray(j0))
+    np.testing.assert_allclose(t1.numpy().reshape(1, cu, -1),
+                               np.asarray(j1), atol=2e-5)
+    i0, i1 = cflat.fused_transition_full(j1, j0, packed_j, hh, wh, th=th,
+                                         inverse=True, interpret=True)
+    k0, k1 = cf.transition_block_plain(
+        torch.from_numpy(np.array(j1).reshape(1, cu, hh, wh)),
+        torch.from_numpy(np.array(j0).reshape(1, cu, hh, wh)), recovered,
+        inverse=True)
+    np.testing.assert_allclose(k0.numpy(), np.asarray(i0), atol=2e-5)
+    np.testing.assert_array_equal(k1.numpy(), np.asarray(i1))
+
+    # K3: the same block on the unshuffled streams (zero-copy layout)
+    x1u = tcoup.pixel_unshuffle(torch.from_numpy(x1)).contiguous()
+    x2u = tcoup.pixel_unshuffle(torch.from_numpy(x2)).contiguous()
+    flat = lambda t: jnp.asarray(t.numpy()).reshape(1, cu, hh * wh)
+    u0, u1 = cf.transition_half_plain(x1u, x2u, recovered)
+    assert u0 is x2u and torch.equal(u1, t1)
+    want = cflat.fused_transition_flat(flat(x1u), flat(x2u), packed_j, hh,
+                                       wh, th=th, interpret=True,
+                                       padded=False)
+    np.testing.assert_allclose(u1.numpy().reshape(1, cu, -1),
+                               np.asarray(want), atol=2e-5)
+    v0, v1 = cf.transition_half_plain(u1, u0, recovered, inverse=True)
+    want = cflat.fused_transition_flat(flat(u1), flat(x2u), packed_j, hh, wh,
+                                       th=th, inverse=True, interpret=True,
+                                       padded=False)
+    assert v1 is u0
+    np.testing.assert_allclose(v0.numpy().reshape(1, cu, -1),
+                               np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(v0.numpy(), x1u.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,c,m,route", [
+    (torch.bfloat16, 64, 64, "mma"), (torch.bfloat16, 16, 16, "mma"),
+    (torch.bfloat16, 32, 32, "fma"), (torch.bfloat16, 64, 16, "fma"),
+    (torch.bfloat16, 16, 4, "fma"), (torch.bfloat16, 4, 4, "fma"),
+    (torch.float32, 64, 64, "fma"), (torch.float32, 16, 16, "fma"),
+    (torch.float32, 32, 32, "fma"),
+])
+def test_transition_route(dtype, c, m, route):
+    """The K2/K3 route is a function of (dtype, C, M) alone: the tensor
+    cores for bf16 at the two widths the kernel is built for, the CUDA
+    cores for every float32 shape (no TF32) and any other bf16 width; the
+    packing carries the pieces exactly where the route says so."""
+    assert cf.transition_route(dtype, c, m) == route
+    assert ((c, m) in cf.TRANSITION_MMA_WIDTHS) == (
+        cf.transition_route(torch.bfloat16, c, m) == "mma")
+    gen = torch.Generator().manual_seed(0)
+    weights = tuple((torch.randn((co, ci, 3, 3), generator=gen),
+                     torch.randn((co,), generator=gen))
+                    for ci, co in ((c, m), (m, m), (m, 4 * c)))
+    assert ("mma" in cf.pack_transition_weights(weights, dtype)) == (
+        route == "mma")
+
+
+def test_transition_launch_counts_are_kept_apart():
+    """ops.launch_counts names K2's and K3's two kernels apart; the CPU path
+    raises none of them, and reset clears all."""
+    from vstnet_tpu_torch import ops
+
+    assert {"transition", "transition_mma", "transition_half",
+            "transition_half_mma"} <= set(ops.launch_counts())
+    cf.fused_transition.mma_launches += 2
+    cf.fused_transition_half.fma_launches += 3
+    try:
+        counts = ops.launch_counts()
+        assert (counts["transition_mma"], counts["transition"],
+                counts["transition_half"],
+                counts["transition_half_mma"]) == (2, 0, 3, 0)
+    finally:
+        ops.reset_launch_counts()
+    assert not any(ops.launch_counts().values())
+    cf.fused_transition_half.mma_launches = 1
+    cf.reset_launches()
+    assert cf.fused_transition_half.mma_launches == 0

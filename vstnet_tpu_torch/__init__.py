@@ -4,10 +4,11 @@ Two paths of vstnet_tpu in PyTorch: global video stylization (the
 reversible RevResNet encoder/decoder, the global cWCT transfer, the video
 program) and masked, auto-seg video stylization (SegFormer-B4/B5 masks per
 frame, ADE20K label remapping, the regional cWCT against per-video style
-statistics). Five hand-written CUDA kernels for Hopper carry them
-(csrc/coupling.cu, csrc/transition.cu with a full-res and a half-res entry,
-csrc/attention.cu, csrc/dwconv.cu); on the CPU the same functions run their
-plain PyTorch versions. The package never imports jax or vstnet_tpu, and
+statistics). Hand-written CUDA kernels for Hopper carry them (the coupling
+block in csrc/coupling_mma.cu and csrc/coupling.cu, the stride-2 transition
+with a full-res and a half-res entry in csrc/transition_mma.cu and
+csrc/transition.cu, csrc/attention.cu, csrc/dwconv.cu); on the CPU the same
+functions run their plain PyTorch versions. The package never imports jax or vstnet_tpu, and
 reads its own copies of the ADE20K tables (data/*.npy).
 
     from vstnet_tpu_torch import (

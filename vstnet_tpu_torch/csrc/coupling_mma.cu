@@ -44,35 +44,10 @@
 // (pieces, taps and k-steps in sequence, no atomics, nothing split across
 // warps) and forward and inverse run the same code, so the inverse
 // recomputes F bit for bit.
-#include "common.cuh"
-#include "mma.cuh"
+#include "conv_mma.cuh"
 
-// Phase timing for scripts/torch_k1_phase_ticks.py (for machines where no
-// profiler can look inside a kernel): built with -DVST_PHASE_TICKS,
-// every warp of a kernel notes clock64() at its phase boundaries and writes
-// the differences to the buffer given to vst_coupling_mma_set_ticks: a row
-// of 16 warps x 8 values per block, in the grid's order. Without the flag,
-// as the port builds it, the macros are empty.
 #ifdef VST_PHASE_TICKS
-__device__ long long* vst_ticks = nullptr;
-#define VST_TICKS_BEGIN() \
-  long long vst_tk[8];    \
-  int vst_nk = 0;         \
-  VST_TICK()
-#define VST_TICK() (vst_tk[vst_nk++] = clock64())
-#define VST_TICKS_END()                                                     \
-  if (vst_ticks != nullptr && (threadIdx.x & 31) == 0) {                    \
-    const size_t blk =                                                      \
-        ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +         \
-        blockIdx.x;                                                         \
-    for (int i = 0; i < vst_nk; ++i)                                        \
-      vst_ticks[(blk * 16 + (threadIdx.x >> 5)) * 8 + i] =                  \
-          vst_tk[i] - vst_tk[0];                                            \
-  }
-#else
-#define VST_TICKS_BEGIN()
-#define VST_TICK()
-#define VST_TICKS_END()
+__device__ long long* vst_ticks = nullptr;  // see conv_mma.cuh
 #endif
 
 namespace vst {
@@ -111,54 +86,6 @@ template <int C, int M> struct MmaCfg {
   static_assert(kMT * kMT == 8 * 32 && (kCS3 == 1 || kCS3 == 2), "conv3");
 };
 
-// One weight piece ([rows][ROW_BYTES], contiguous in global memory) into a
-// swizzled stage, by all threads of the block.
-template <int ROW_BYTES>
-__device__ __forceinline__ void load_piece(uint32_t dst, const char* src,
-                                           int bytes) {
-  constexpr int n = ROW_BYTES / 16;
-  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
-    cp_async16(dst + swz<ROW_BYTES>(i / n, i % n), src + (size_t)i * 16);
-}
-
-// acc += A * B for one weight piece: MT m-tiles of 16 rows, NT n-tiles of
-// 8 columns, nine taps of KSTEPS k-steps. `centre[mt]` is the position, in
-// the source tile of pitch PITCH, of the centre of this lane's ldmatrix
-// row (row lane % 16 of m-tile mt); a_chunk0 the 16-byte chunk of a source
-// position where the piece's input channels start; b_chunk0 the chunk of
-// a piece row where this warp's columns start.
-template <int MT, int NT, int KSTEPS, int A_ROW, int B_ROW, int PITCH>
-__device__ __forceinline__ void conv_piece(float (&acc)[MT][NT][4],
-                                           uint32_t a_base,
-                                           const int (&centre)[MT],
-                                           int a_chunk0, uint32_t b_base,
-                                           int b_chunk0, int lane) {
-  const int khalf = lane >> 4, krow = lane & 15;
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int shift = (tap / 3 - 1) * PITCH + (tap % 3 - 1);
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(a[mt], a_base + swz<A_ROW>(centre[mt] + shift,
-                                           a_chunk0 + ks * 2 + khalf));
-      const int row = (tap * KSTEPS + ks) * 16 + krow;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, b_base + swz<B_ROW>(row, b_chunk0 + np * 2 + khalf));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
 // KC input channels (from channel ci0 on) of x2's XW x XW window whose
 // corner is image position (r0 - 3, c0 - 3), reflected at the image edge,
 // from NCHW into a position-major swizzled tile of KC * 2 byte rows, by NW
@@ -196,41 +123,6 @@ __device__ __forceinline__ void stage_window(
             dst + swz<KC * 2>(pos, item % quads) + (lane >> 3) * 4) = v[k];
     }
   }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-}
-
-// bf16(ReLU(acc + bias)) of one 32-row unit into a position-major tile of
-// `count` positions; rows at or past `count` are padding and not stored
-template <int NT, int ROW>
-__device__ __forceinline__ void store_hidden(const float (&acc)[2][NT][4],
-                                             unsigned char* tile,
-                                             const float* __restrict__ bias,
-                                             int row0, int count, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int p = row0 + mt * 16 + g + 8 * hf;
-      if (p >= count) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int co = nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(tile + swz<ROW>(p, nt) + t * 4) =
-            pack_bf16(
-                fmaxf(acc[mt][nt][2 * hf] + __ldg(bias + co), 0.f),
-                fmaxf(acc[mt][nt][2 * hf + 1] + __ldg(bias + co + 1), 0.f));
-      }
-    }
 }
 
 template <int C, int M>
@@ -319,7 +211,8 @@ __global__ void __launch_bounds__(MmaCfg<C, M>::kThreads)
 #pragma unroll
       for (int u = 0; u < Cfg::kU1; ++u)
         if ((warp + u * NW) * 32 < kMA * kMA)
-          conv_piece<2, NTM, kMKC1 / 16, kMXRow, HROW, kMX>(
+          conv_piece<2, NTM, kMKC1 / 16, kMXRow, HROW,
+                     TapsStride1<kMX>>(
               acc[u], xs_a + (chunk & 1) * Cfg::kXS, centre[u], 0,
               wst_a + (piece & 1) * Cfg::kStage, 0, lane);
     }
@@ -355,7 +248,7 @@ __global__ void __launch_bounds__(MmaCfg<C, M>::kThreads)
 #pragma unroll
       for (int u = 0; u < Cfg::kU2; ++u)
         if ((warp + u * NW) * 32 < kMB * kMB)
-          conv_piece<2, NTM, KC / 16, HROW, HROW, kMA>(
+          conv_piece<2, NTM, KC / 16, HROW, HROW, TapsStride1<kMA>>(
               acc[u], h1_a, centre[u], kc * KC / 8,
               wst_a + (piece & 1) * Cfg::kStage, 0, lane);
     }
@@ -384,7 +277,8 @@ __global__ void __launch_bounds__(MmaCfg<C, M>::kThreads)
         cp_async_wait<0>();
         __syncthreads();            // h2 is whole; the piece has landed
         fetch_piece(piece + 1);
-        conv_piece<2, NT3, KC / 16, HROW, Cfg::kNC3 * 2, kMB>(
+        conv_piece<2, NT3, KC / 16, HROW, Cfg::kNC3 * 2,
+                   TapsStride1<kMB>>(
             acc, smem_u32(h2), centre, kc * KC / 8,
             wst_a + (piece & 1) * Cfg::kStage, half * NT3, lane);
       }
@@ -413,7 +307,7 @@ __global__ void __launch_bounds__(MmaCfg<C, M>::kThreads)
   }
   cp_async_wait<0>();
   VST_TICK();                                // 5: conv3 and the output done
-  VST_TICKS_END();
+  VST_TICKS_END(vst_ticks);
 }
 
 template <int C, int M>
@@ -599,7 +493,7 @@ __global__ void __launch_bounds__(kNThreads, 2)
     }
   }
   VST_TICK();                                // 4: conv3 and the output done
-  VST_TICKS_END();
+  VST_TICKS_END(vst_ticks);
 }
 
 inline int launch_coupling_mma_narrow(const void* x1, const void* x2,

@@ -1,5 +1,5 @@
-// Tensor-core and asynchronous-copy primitives of the attention (K4) and
-// the bf16 coupling (K1) kernels: ldmatrix, mma.sync.m16n8k16 (bf16 in,
+// Tensor-core and asynchronous-copy primitives of the attention (K4), the
+// bf16 coupling (K1) and the bf16 transition (K2, K3) kernels: ldmatrix, mma.sync.m16n8k16 (bf16 in,
 // float32 accumulators) and cp.async, as inline PTX.
 //
 // Fragment layouts of mma.sync.m16n8k16, lane = 4 * g + t:

@@ -9,11 +9,14 @@ CPU the wrappers run their plain versions, so this module is also the CPU
 path.
 
 The TPU route tables (tile pickers, batch caps, the flat layout and its
-segments) have no counterpart: the CUDA kernels take every shape. One rule
-of them is kept, so that both packages run the same kernel on the same
-frames: a stride-2 block takes the full-resolution entry (K2) when its
-half-resolution width is a multiple of 128 and the half-resolution entry
-(K3, pixel (un)shuffle by the caller) otherwise (`_half_res_entry`).
+segments) have no counterpart: the CUDA kernels take every shape. That
+holds for the JAX package's entry rule of the stride-2 block too (the
+full-resolution entry where the half-resolution width is a multiple of 128
+lanes, the half-resolution entry otherwise): on an H100 K2 beat K3 with the
+caller's pixel (un)shuffle copies by 0.12-0.17 ms a launch at 512x512 and
+at 640x360 frames alike (PERF.md), so every stride-2 block takes K2 unless
+the weights were packed with `stride2_entry="half"`, which keeps K3 a whole
+path of its own.
 """
 
 from __future__ import annotations
@@ -38,10 +41,18 @@ from vstnet_tpu_torch.ops.coupling_fused import (
 )
 
 
-def pack_revresnet(net, dtype=torch.float32):
+STRIDE2_ENTRIES = ("full", "half")
+
+
+def pack_revresnet(net, dtype=torch.float32, stride2_entry: str = "full"):
     """RevResNet -> fast-path weights on the net's device, packed once:
     {"stack": [(stride, packed), ...], "reduction": [packed, ...],
-    "dtype": dtype}."""
+    "dtype": dtype, "stride2_entry": stride2_entry}. stride2_entry names
+    the entry every stride-2 block takes: "full" (K2, the pixel (un)shuffle
+    inside the kernel) or "half" (K3, the (un)shuffle by the caller)."""
+    if stride2_entry not in STRIDE2_ENTRIES:
+        raise ValueError(f"stride2_entry must be one of {STRIDE2_ENTRIES}, "
+                         f"got {stride2_entry!r}")
     stack = []
     for block in net.stack:
         pack = (pack_coupling_weights if block.stride == 1
@@ -49,14 +60,8 @@ def pack_revresnet(net, dtype=torch.float32):
         stack.append((block.stride, pack(block.weights(), dtype)))
     reduction = [pack_coupling_weights(b.weights(), dtype)
                  for b in net.channel_reduction.block_list]
-    return {"stack": stack, "reduction": reduction, "dtype": dtype}
-
-
-def _half_res_entry(w_half: int) -> bool:
-    """Whether a stride-2 block whose output is w_half wide takes K3: the
-    JAX package's rule (its full-resolution entry needs a half-res width
-    that is a multiple of 128 lanes)."""
-    return w_half % 128 != 0
+    return {"stack": stack, "reduction": reduction, "dtype": dtype,
+            "stride2_entry": stride2_entry}
 
 
 def _split(x):
@@ -78,11 +83,12 @@ def encode_fast(fast_params, x, cfg: RevResNetConfig,
     if x.shape[1] % ds or x.shape[2] % ds:
         raise ValueError(f"encode_fast: spatial dims {x.shape[1]}x"
                          f"{x.shape[2]} must be multiples of {ds}")
+    half_entry = fast_params["stride2_entry"] == "half"
     x1, x2 = _split(injective_pad(x.permute(0, 3, 1, 2), cfg.inj_pad))
     for stride, w in fast_params["stack"]:
         if stride == 1:
             x1, x2 = x2, fused_coupling(x1, x2, w)
-        elif _half_res_entry(x1.shape[3] // 2):
+        elif half_entry:
             x1, x2 = fused_transition_half(
                 pixel_unshuffle(x1).contiguous(),
                 pixel_unshuffle(x2).contiguous(), w)
@@ -108,6 +114,7 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
         x = z.permute(0, 3, 1, 2)
         for _ in range(cfg.sp_steps):
             x = pixel_unshuffle(x)
+    half_entry = fast_params["stride2_entry"] == "half"
     x1, x2 = _split(x)
     # forward: (a, b) -> (b, F(b) + a); inverse: (p, q) -> (q - F(p), p)
     for w in reversed(fast_params["reduction"]):
@@ -115,7 +122,7 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
     for stride, w in reversed(fast_params["stack"]):
         if stride == 1:
             x1, x2 = fused_coupling(x2, x1, w, inverse=True), x1
-        elif _half_res_entry(x1.shape[3]):
+        elif half_entry:
             x1, x2 = fused_transition_half(x2, x1, w, inverse=True)
             x1 = pixel_shuffle(x1).contiguous()
             x2 = pixel_shuffle(x2).contiguous()

@@ -44,6 +44,14 @@ _SIGNATURES = {
                        _P],
     # a, b, weights, out, B, C, M, h, w, inverse, is_bf16, stream
     "vst_transition_half": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, bf16 pieces, b1 in the float32 weights, out0, out1, B, C, M, h,
+    # w, inverse, stream
+    "vst_transition_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P],
+    # a, b, bf16 pieces, b1 in the float32 weights, out, B, C, M, h, w,
+    # inverse, stream
+    "vst_transition_half_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P],
     # q, k, v, o, B, H, N, M, D, scale, (b, h, n) strides of q, k, v, o,
     # stream
     "vst_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F] + [_L] * 12

@@ -2,8 +2,9 @@
 
 Counterpart of vstnet_tpu/ops/coupling_flat.py (fused_coupling_flat,
 fused_transition_full and fused_transition_flat). The kernels are CUDA C++
-for Hopper in `csrc/coupling.cu`, `csrc/coupling_mma.cu` and
-`csrc/transition.cu`, built at first use by `ops/_build.py`. Beside each
+for Hopper in `csrc/coupling.cu`, `csrc/coupling_mma.cu`,
+`csrc/transition.cu` and `csrc/transition_mma.cu`, built at first use by
+`ops/_build.py`. Beside each
 kernel is its plain PyTorch version, built from ops/pad_conv.py with the
 same rounding points. K2 takes and returns full-resolution streams and does
 the pixel (un)shuffle inside; K3 (`fused_transition_half`) is the same
@@ -14,7 +15,11 @@ the widths C=256/M=64, C=64/M=16 and C=16/M=4 runs on the tensor cores
 (`csrc/coupling_mma.cu`, weights as bf16 pieces or fragments from
 `pack_coupling_mma`); float32 at every width, and bf16 at any other width,
 run on the CUDA cores (`csrc/coupling.cu`). float32 stays off the tensor
-cores because a float32 product there would be TF32.
+cores because a float32 product there would be TF32. K2 and K3 have the
+same two routes, chosen by `transition_route(dtype, C, M)`: bf16 at
+C=M=64 and C=M=16 on the tensor cores (`csrc/transition_mma.cu`, pieces
+from `pack_transition_mma`), everything else on the CUDA cores
+(`csrc/transition.cu`).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back from one to the other.
@@ -22,8 +27,9 @@ Each kernel's launches are counted in a plain int attribute of its wrapper,
 raised where that kernel is launched and nowhere else: K1's two kernels
 apart (`fused_coupling.fma_launches` for `csrc/coupling.cu`,
 `fused_coupling.mma_launches` for `csrc/coupling_mma.cu`;
-`coupling_launches()` is their sum), `fused_transition.launches`,
-`fused_transition_half.launches`.
+`coupling_launches()` is their sum), and the same pair of attributes on
+`fused_transition` and on `fused_transition_half` for `csrc/transition.cu`
+and `csrc/transition_mma.cu`.
 """
 
 from __future__ import annotations
@@ -71,6 +77,23 @@ def coupling_route(dtype, c: int, m: int) -> str:
     other width). A function of its arguments only, the same for every
     call."""
     if dtype == torch.bfloat16 and (c, m) in MMA_WIDTHS:
+        return "mma"
+    return "fma"
+
+
+# (C, M) widths the tensor-core transition kernel is built for, and its
+# piece sizes: input channels per piece of every conv, output channels per
+# piece of conv3 (csrc/transition_mma.cu: kTKC, kTNC3)
+TRANSITION_MMA_WIDTHS = ((64, 64), (16, 16))
+_TR_KC = 16
+_TR_NC3 = 64
+
+
+def transition_route(dtype, c: int, m: int) -> str:
+    """Which K2/K3 kernel takes (dtype, C, M): "mma" (tensor cores, bf16 at
+    the widths of TRANSITION_MMA_WIDTHS) or "fma" (CUDA cores: float32, and
+    bf16 at every other width). A function of its arguments only."""
+    if dtype == torch.bfloat16 and (c, m) in TRANSITION_MMA_WIDTHS:
         return "mma"
     return "fma"
 
@@ -167,6 +190,34 @@ def unpack_coupling_mma(pieces, c: int, m: int):
     return tuple(out)
 
 
+def _transition_piece_shapes(m: int):
+    """(ci per piece, co per piece) of conv1, conv2, conv3."""
+    return (_TR_KC, m), (_TR_KC, m), (_TR_KC, _TR_NC3)
+
+
+def pack_transition_mma(rounded):
+    """The tensor-core transition kernel's weights as one bf16 vector of
+    pieces, each [tap][ci][co] for 16 input channels, in the order the
+    kernel streams them (conv1 and conv2 by input chunk; conv3 by output
+    chunk of 64, then input chunk). `rounded` holds bf16-rounded values as
+    float32 (_pack's "w"), so the bf16 copy is exact."""
+    (w1, _), (w2, _), (w3, _) = rounded
+    return torch.cat([_to_pieces(w, kc, nc) for w, (kc, nc) in zip(
+        (w1, w2, w3), _transition_piece_shapes(w1.shape[0]))]).to(
+            torch.bfloat16).contiguous()
+
+
+def unpack_transition_mma(pieces, c: int, m: int):
+    """pack_transition_mma's vector -> (w1, w2, w3) OIHW as float32."""
+    out, at = [], 0
+    for (cout, cin), (kc, nc) in zip(((m, c), (m, m), (4 * c, m)),
+                                     _transition_piece_shapes(m)):
+        n = cout * cin * 9
+        out.append(_from_pieces(pieces[at:at + n].float(), cout, cin, kc, nc))
+        at += n
+    return tuple(out)
+
+
 def pack_coupling_weights(weights, dtype=torch.float32):
     """Stride-1 branch weights (C -> C/4 -> C/4 -> C) in the K1 layouts:
     "flat" for the CUDA-core kernel (and the biases of both), and "mma",
@@ -182,11 +233,16 @@ def pack_coupling_weights(weights, dtype=torch.float32):
 
 
 def pack_transition_weights(weights, dtype=torch.float32):
-    """Stride-2 branch weights (C -> M -> M -> 4C) in the K2 layout."""
+    """Stride-2 branch weights (C -> M -> M -> 4C) in the K2/K3 layouts:
+    "flat" for the CUDA-core kernel (and the biases of both), and "mma",
+    the bf16 pieces, where transition_route sends this block to the
+    tensor-core kernel."""
     packed = _pack(weights, dtype)
     if packed["cout"] != 4 * packed["cin"]:
         raise ValueError(f"transition branch must map C -> 4C, got "
                          f"{packed['cin']} -> {packed['cout']}")
+    if transition_route(dtype, packed["cin"], packed["mid"]) == "mma":
+        packed["mma"] = pack_transition_mma(packed["w"])
     return packed
 
 
@@ -254,6 +310,18 @@ def _check(name, tensors, w):
                          f"activations are {ref.dtype}")
 
 
+def _mma_args(name, w, ref):
+    """(bf16 pieces, b1 inside the float32 buffer) of a block routed to a
+    tensor-core kernel: the biases are read from "flat", where b1 follows
+    w1."""
+    pieces = w["mma"]
+    if pieces.device != ref.device:
+        raise ValueError(f"{name}: bf16 weight pieces on {pieces.device}, "
+                         f"inputs on {ref.device}")
+    return (pieces.data_ptr(),
+            w["flat"].data_ptr() + 4 * w["cin"] * 9 * w["mid"])
+
+
 def fused_coupling(x1, x2, w, inverse: bool = False):
     """One coupling block: x1 + F(x2), or x1 - F(x2) with inverse=True.
 
@@ -272,14 +340,9 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         if mma:
-            pieces = w["mma"]
-            if pieces.device != x1.device:
-                raise ValueError("fused_coupling: bf16 weight pieces on "
-                                 f"{pieces.device}, inputs on {x1.device}")
-            # the biases are read from the float32 buffer: b1 follows w1
-            b1 = w["flat"].data_ptr() + 4 * c * 9 * m
+            pieces, b1 = _mma_args("fused_coupling", w, x1)
             err = lib.vst_coupling_mma(
-                x1.data_ptr(), x2.data_ptr(), pieces.data_ptr(), b1,
+                x1.data_ptr(), x2.data_ptr(), pieces, b1,
                 out.data_ptr(), b, c, m, h, wd, int(inverse), stream)
             _build.check(err, "fused_coupling (tensor cores)")
             fused_coupling.mma_launches += 1
@@ -328,18 +391,28 @@ def fused_transition(a, b, w, inverse: bool = False):
     out0 = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     out1 = torch.empty_like(out0)
     lib = _build.load()
+    m = w["mid"]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vst_transition(
-            a.data_ptr(), b.data_ptr(), w["flat"].data_ptr(),
-            out0.data_ptr(), out1.data_ptr(), bsz, c, w["mid"], h, wd,
-            int(inverse), int(a.dtype == torch.bfloat16), stream)
-    _build.check(err, "fused_transition")
-    fused_transition.launches += 1
+        if transition_route(a.dtype, c, m) == "mma":
+            pieces, b1 = _mma_args("fused_transition", w, a)
+            err = lib.vst_transition_mma(
+                a.data_ptr(), b.data_ptr(), pieces, b1, out0.data_ptr(),
+                out1.data_ptr(), bsz, c, m, h, wd, int(inverse), stream)
+            _build.check(err, "fused_transition (tensor cores)")
+            fused_transition.mma_launches += 1
+        else:
+            err = lib.vst_transition(
+                a.data_ptr(), b.data_ptr(), w["flat"].data_ptr(),
+                out0.data_ptr(), out1.data_ptr(), bsz, c, m, h, wd,
+                int(inverse), int(a.dtype == torch.bfloat16), stream)
+            _build.check(err, "fused_transition (CUDA cores)")
+            fused_transition.fma_launches += 1
     return out0, out1
 
 
-fused_transition.launches = 0
+fused_transition.fma_launches = 0
+fused_transition.mma_launches = 0
 
 
 def fused_transition_half(a_u, b_u, w, inverse: bool = False):
@@ -360,22 +433,31 @@ def fused_transition_half(a_u, b_u, w, inverse: bool = False):
                          f"for {4 * c}")
     out = torch.empty_like(a_u)
     lib = _build.load()
+    m = w["mid"]
     with torch.cuda.device(a_u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vst_transition_half(
-            a_u.data_ptr(), b_u.data_ptr(), w["flat"].data_ptr(),
-            out.data_ptr(), bsz, c, w["mid"], h, wd, int(inverse),
-            int(a_u.dtype == torch.bfloat16), stream)
-    _build.check(err, "fused_transition_half")
-    fused_transition_half.launches += 1
+        if transition_route(a_u.dtype, c, m) == "mma":
+            pieces, b1 = _mma_args("fused_transition_half", w, a_u)
+            err = lib.vst_transition_half_mma(
+                a_u.data_ptr(), b_u.data_ptr(), pieces, b1, out.data_ptr(),
+                bsz, c, m, h, wd, int(inverse), stream)
+            _build.check(err, "fused_transition_half (tensor cores)")
+            fused_transition_half.mma_launches += 1
+        else:
+            err = lib.vst_transition_half(
+                a_u.data_ptr(), b_u.data_ptr(), w["flat"].data_ptr(),
+                out.data_ptr(), bsz, c, m, h, wd, int(inverse),
+                int(a_u.dtype == torch.bfloat16), stream)
+            _build.check(err, "fused_transition_half (CUDA cores)")
+            fused_transition_half.fma_launches += 1
     return (out, b_u) if inverse else (b_u, out)
 
 
-fused_transition_half.launches = 0
+fused_transition_half.fma_launches = 0
+fused_transition_half.mma_launches = 0
 
 
 def reset_launches() -> None:
-    fused_coupling.fma_launches = 0
-    fused_coupling.mma_launches = 0
-    fused_transition.launches = 0
-    fused_transition_half.launches = 0
+    for fn in (fused_coupling, fused_transition, fused_transition_half):
+        fn.fma_launches = 0
+        fn.mma_launches = 0
