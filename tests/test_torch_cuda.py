@@ -350,53 +350,47 @@ def test_wrappers_reject_bad_inputs(dev, gen):
             cf.pack_transition_weights(_weights(gen, 16, 16, 64, dev)))
 
 
-@pytest.mark.parametrize("w", [32, 56])
+@pytest.mark.parametrize("w", [32, 56, 512])
 def test_fast_path_on_card_matches_standard_path(dev, w):
-    """Float32 fast path against the standard path, through the entry the
-    weights are packed for: K2 by default, K3 with stride2_entry="half";
-    both give the same bits."""
+    """Float32 fast path against the standard path. Half-res widths 16 and 8
+    (or 28 and 14) are no multiples of 128, so both stride-2 blocks take the
+    half-res entry (K3); at w = 512 (256 and 128) both take K2."""
     cfg = RevResNetConfig(n_blocks=(2, 2, 2))
     net = RevResNet(cfg, device=dev).init_weights(
         torch.Generator().manual_seed(0))
+    fast = rf.pack_revresnet(net)
     x = torch.rand((2, 32, w, 3), generator=torch.Generator().manual_seed(1))
     x = x.to(dev)
-    latents = []
-    for entry, enc, dec in (("full", [2, 0, 0, 0], [4, 0, 0, 0]),
-                            ("half", [0, 0, 2, 0], [0, 0, 4, 0])):
-        fast = rf.pack_revresnet(net, stride2_entry=entry)
-        cf.reset_launches()
-        z = rf.encode_fast(fast, x, cfg)
-        assert cf.fused_coupling.fma_launches == 6
-        assert _transition_counts() == enc
-        assert _err(z, net.encode(x)) <= 1e-5
-        back = rf.decode_fast(fast, z, cfg)
-        assert _transition_counts() == dec
-        assert _err(back, x) <= 1e-5
-        assert _err(back, net.decode(z)) <= 1e-5
-        latents.append(z)
-    assert torch.equal(*latents)
+    enc, dec = (([2, 0, 0, 0], [4, 0, 0, 0]) if w == 512
+                else ([0, 0, 2, 0], [0, 0, 4, 0]))
+    cf.reset_launches()
+    z = rf.encode_fast(fast, x, cfg)
+    assert cf.fused_coupling.fma_launches == 6
+    assert _transition_counts() == enc
+    assert _err(z, net.encode(x)) <= 1e-5
+    back = rf.decode_fast(fast, z, cfg)
+    assert _transition_counts() == dec
+    assert _err(back, x) <= 1e-5
+    assert _err(back, net.decode(z)) <= 1e-5
 
 
-def test_fast_path_bf16_takes_the_tensor_core_kernels(dev):
+@pytest.mark.parametrize("w,want", [(104, [0, 0, 0, 4]),
+                                    (512, [0, 4, 0, 0])])
+def test_fast_path_bf16_takes_the_tensor_core_kernels(dev, w, want):
     """PHOTO widths at depth 1 in bf16: every block of encode and decode
-    runs on a tensor-core kernel, through either stride-2 entry, and both
-    entries give the same bits."""
+    runs on a tensor-core kernel, through the stride-2 entry the frame's
+    width selects (K3 at w = 104, K2 at w = 512)."""
     cfg = RevResNetConfig(n_blocks=(1, 1, 1))
     net = RevResNet(cfg, device=dev).init_weights(
         torch.Generator().manual_seed(0))
-    x = torch.rand((2, 72, 104, 3),
+    x = torch.rand((2, 72, w, 3),
                    generator=torch.Generator().manual_seed(1)).to(dev)
-    outs = []
-    for entry, want in (("full", [0, 4, 0, 0]), ("half", [0, 0, 0, 4])):
-        fast = rf.pack_revresnet(net, torch.bfloat16, stride2_entry=entry)
-        cf.reset_launches()
-        z = rf.encode_fast(fast, x.bfloat16(), cfg)
-        back = rf.decode_fast(fast, z, cfg)
-        assert _transition_counts() == want
-        assert cf.fused_coupling.fma_launches == 0
-        assert cf.fused_coupling.mma_launches > 0
-        mse = float(((back.float() - x) ** 2).mean())
-        assert 10 * np.log10(1.0 / mse) > 45.0
-        outs.append((z, back))
-    assert torch.equal(outs[0][0], outs[1][0])
-    assert torch.equal(outs[0][1], outs[1][1])
+    fast = rf.pack_revresnet(net, torch.bfloat16)
+    cf.reset_launches()
+    z = rf.encode_fast(fast, x.bfloat16(), cfg)
+    back = rf.decode_fast(fast, z, cfg)
+    assert _transition_counts() == want
+    assert cf.fused_coupling.fma_launches == 0
+    assert cf.fused_coupling.mma_launches > 0
+    mse = float(((back.float() - x) ** 2).mean())
+    assert 10 * np.log10(1.0 / mse) > 45.0

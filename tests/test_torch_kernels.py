@@ -188,44 +188,14 @@ def test_full_res_transition_equals_half_res_on_unshuffled(rng, dt):
 
 @pytest.mark.parametrize("w_half,half", [(16, True), (128, False),
                                          (160, True), (256, False)])
-def test_half_res_entry_rule(w_half, half, monkeypatch):
-    """The JAX package takes its half-res entry where the half-res width is
-    no multiple of 128 lanes. The port keeps no such rule (a TPU reason; on
-    an H100 K2 won at every size measured): at each of these widths every
-    stride-2 block takes K2, or K3 where the weights were packed with
-    stride2_entry="half", and both entries give the same latent."""
+def test_half_res_entry_rule(w_half, half):
+    """The fast path takes K3 exactly where the JAX package takes its
+    half-res entry: a half-res width that is no multiple of 128."""
     import vstnet_tpu.models.revresnet_fast as jrf
-    from vstnet_tpu_torch.config import RevResNetConfig
     from vstnet_tpu_torch.models import revresnet_fast as rf
-    from vstnet_tpu_torch.models.revresnet import RevResNet
 
+    assert rf._half_res_entry(w_half) is half
     assert (jrf._tr_full_th(64, w_half, 64) is None) is half
-
-    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
-    net = RevResNet(cfg, device="cpu").init_weights(
-        torch.Generator().manual_seed(0))
-    calls = []
-    for name in ("fused_transition", "fused_transition_half"):
-        def counted(*args, _fn=getattr(rf, name), _name=name, **kw):
-            calls.append(_name)
-            return _fn(*args, **kw)
-        monkeypatch.setattr(rf, name, counted)
-    x = torch.rand((1, 8, 2 * w_half, 3),
-                   generator=torch.Generator().manual_seed(1))
-    latents = {}
-    for entry, fn in (("full", "fused_transition"),
-                      ("half", "fused_transition_half")):
-        fast = rf.pack_revresnet(net, stride2_entry=entry)
-        del calls[:]
-        z = rf.encode_fast(fast, x, cfg)
-        back = rf.decode_fast(fast, z, cfg)
-        assert calls == [fn] * 4
-        np.testing.assert_allclose(back.numpy(), x.numpy(), atol=1e-5)
-        latents[entry] = z
-    assert torch.equal(latents["full"], latents["half"])
-    assert rf.pack_revresnet(net)["stride2_entry"] == "full"
-    with pytest.raises(ValueError):
-        rf.pack_revresnet(net, stride2_entry="auto")
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 4, 6), (1, 12, 8, 2)])

@@ -6,9 +6,8 @@ init_revresnet and carried across with params_from_jax, SegFormer weights
 with segformer_params_from_jax. The JAX fast path runs its Pallas kernels
 in interpret mode (patch_interpret_fused); the port's runs its kernels'
 plain versions on the CPU. At these frame sizes (half-res widths 32 and
-16) the JAX package takes its half-res transition entry; the port's program
-test runs one case through each of its entries (K2 as packed by default, K3
-with stride2_entry="half"), so it is also K3's test on a whole path.
+16) both packages take the half-res transition entry (K3), so the program
+test is also K3's test on a whole path.
 
 Tolerances:
   * remapping: integer-equal (counts and table lookups are exact).
@@ -366,9 +365,7 @@ def test_masked_video_program_matches_jax(rng, models, _interpret, seg_hw):
     # the port
     seg = sf.Segmenter(net=seg_net,
                        label_mapping=remap.load_label_mapping())
-    # one case through each stride-2 entry: K2 as packed by default, K3
-    fast = rf.pack_revresnet(net,
-                             stride2_entry="half" if seg_hw else "full")
+    fast = rf.pack_revresnet(net)
     cf.reset_launches()
     region, plan, smask = pipeline.prepare_masked_style(
         fast, seg, torch.from_numpy(style), SMALL, min_ratio)

@@ -9,14 +9,14 @@ CPU the wrappers run their plain versions, so this module is also the CPU
 path.
 
 The TPU route tables (tile pickers, batch caps, the flat layout and its
-segments) have no counterpart: the CUDA kernels take every shape. That
-holds for the JAX package's entry rule of the stride-2 block too (the
-full-resolution entry where the half-resolution width is a multiple of 128
-lanes, the half-resolution entry otherwise): on an H100 K2 beat K3 with the
-caller's pixel (un)shuffle copies by 0.12-0.17 ms a launch at 512x512 and
-at 640x360 frames alike (PERF.md), so every stride-2 block takes K2 unless
-the weights were packed with `stride2_entry="half"`, which keeps K3 a whole
-path of its own.
+segments) have no counterpart: the CUDA kernels take every shape. One rule
+of them is kept, so that both packages run the same kernel on the same
+frames: a stride-2 block takes the full-resolution entry (K2) when its
+half-resolution width is a multiple of 128 and the half-resolution entry
+(K3, pixel (un)shuffle by the caller) otherwise (`_half_res_entry`). Both
+entries give the same bits; on an H100 in bf16 K3 with the caller's copies
+costs 0.12-0.17 ms a launch more than K2 (PERF.md), so frames whose width
+is no multiple of 512 pay about 0.6 ms a batch for it.
 """
 
 from __future__ import annotations
@@ -41,18 +41,10 @@ from vstnet_tpu_torch.ops.coupling_fused import (
 )
 
 
-STRIDE2_ENTRIES = ("full", "half")
-
-
-def pack_revresnet(net, dtype=torch.float32, stride2_entry: str = "full"):
+def pack_revresnet(net, dtype=torch.float32):
     """RevResNet -> fast-path weights on the net's device, packed once:
     {"stack": [(stride, packed), ...], "reduction": [packed, ...],
-    "dtype": dtype, "stride2_entry": stride2_entry}. stride2_entry names
-    the entry every stride-2 block takes: "full" (K2, the pixel (un)shuffle
-    inside the kernel) or "half" (K3, the (un)shuffle by the caller)."""
-    if stride2_entry not in STRIDE2_ENTRIES:
-        raise ValueError(f"stride2_entry must be one of {STRIDE2_ENTRIES}, "
-                         f"got {stride2_entry!r}")
+    "dtype": dtype}."""
     stack = []
     for block in net.stack:
         pack = (pack_coupling_weights if block.stride == 1
@@ -60,8 +52,14 @@ def pack_revresnet(net, dtype=torch.float32, stride2_entry: str = "full"):
         stack.append((block.stride, pack(block.weights(), dtype)))
     reduction = [pack_coupling_weights(b.weights(), dtype)
                  for b in net.channel_reduction.block_list]
-    return {"stack": stack, "reduction": reduction, "dtype": dtype,
-            "stride2_entry": stride2_entry}
+    return {"stack": stack, "reduction": reduction, "dtype": dtype}
+
+
+def _half_res_entry(w_half: int) -> bool:
+    """Whether a stride-2 block whose output is w_half wide takes K3: the
+    JAX package's rule (its full-resolution entry needs a half-res width
+    that is a multiple of 128 lanes)."""
+    return w_half % 128 != 0
 
 
 def _split(x):
@@ -83,12 +81,11 @@ def encode_fast(fast_params, x, cfg: RevResNetConfig,
     if x.shape[1] % ds or x.shape[2] % ds:
         raise ValueError(f"encode_fast: spatial dims {x.shape[1]}x"
                          f"{x.shape[2]} must be multiples of {ds}")
-    half_entry = fast_params["stride2_entry"] == "half"
     x1, x2 = _split(injective_pad(x.permute(0, 3, 1, 2), cfg.inj_pad))
     for stride, w in fast_params["stack"]:
         if stride == 1:
             x1, x2 = x2, fused_coupling(x1, x2, w)
-        elif half_entry:
+        elif _half_res_entry(x1.shape[3] // 2):
             x1, x2 = fused_transition_half(
                 pixel_unshuffle(x1).contiguous(),
                 pixel_unshuffle(x2).contiguous(), w)
@@ -114,7 +111,6 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
         x = z.permute(0, 3, 1, 2)
         for _ in range(cfg.sp_steps):
             x = pixel_unshuffle(x)
-    half_entry = fast_params["stride2_entry"] == "half"
     x1, x2 = _split(x)
     # forward: (a, b) -> (b, F(b) + a); inverse: (p, q) -> (q - F(p), p)
     for w in reversed(fast_params["reduction"]):
@@ -122,7 +118,7 @@ def decode_fast(fast_params, z, cfg: RevResNetConfig,
     for stride, w in reversed(fast_params["stack"]):
         if stride == 1:
             x1, x2 = fused_coupling(x2, x1, w, inverse=True), x1
-        elif half_entry:
+        elif _half_res_entry(x1.shape[3]):
             x1, x2 = fused_transition_half(x2, x1, w, inverse=True)
             x1 = pixel_shuffle(x1).contiguous()
             x2 = pixel_shuffle(x2).contiguous()
