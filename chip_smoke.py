@@ -841,9 +841,9 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
               tk, tp, bound, dtype="float32")
         tally("coupling", count, tk, tp, bound)
     # K2 at the 512x512 shapes and K3 at the 640x360 shapes: the tensor-core
-    # kernel in bf16 and the CUDA-core kernel in float32 (TF32 off on both sides); then both entries on the
-    # same frames in bf16, the caller's pixel (un)shuffle copies being part
-    # of the half-res entry
+    # kernel in bf16 and the CUDA-core kernel in float32 (TF32 off on both
+    # sides); then both entries on the same frames in bf16, the caller's
+    # pixel (un)shuffle copies being part of the half-res entry
     f32 = torch.float32
     for shapes, half in ((K2_SHAPES, False), (K3_SHAPES, True)):
         for name, c, h, w, count in shapes:
