@@ -19,7 +19,9 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               640x360 shapes (the same, plus K2 == K3 on unshuffled streams
               bit for bit, also at the ragged sizes), K4 attention at
               the SegFormer shapes, one ragged shape and one with M = 4096,
-              K5 depthwise conv + GELU at the four MixFFN widths.
+              K5 depthwise conv + GELU at the four MixFFN shapes of 512x512
+              and of 1024x1024 frames and at one ragged shape, each printed
+              with whether it equals its plain version bit for bit.
   4. global   StyleModel.random_init -> style factors from one 512x512
               style image -> make_fused_video_fn(out_u8=True) on 2 batches
               of 4 frames in bf16 (K1 and K2 on the tensor cores) and one in
@@ -41,9 +43,14 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               scaled_dot_product_attention) at batch 8 in bf16, beside its
               bound, with the route each K1 shape took; the CUDA-core K1,
               K2 and K3 kernels in float32; K2 against K3 with the caller's
-              (un)shuffle at the 512x512 and the 640x360 shapes; SegFormer-B4
-              alone; both programs' frames/s and the masked program's
-              stages, with CUDA events.
+              (un)shuffle at the 512x512 and the 640x360 shapes; K5 by
+              CUDA-graph replay (its device time: called eagerly, the
+              wrapper's host time is the larger at the small shapes), also
+              at the 1024x1024 shapes, beside cuDNN's depthwise conv + GELU
+              as a yardstick; SegFormer-B4 alone (CUDA events, and one call
+              under torch.profiler for its device time and idle share);
+              both programs' frames/s and the masked program's stages,
+              with CUDA events.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -134,6 +141,11 @@ K4_CHECKS = [("512 s1", 4, 16384, 256), ("1024 s1", 1, 65536, 1024),
 # 512x512 frames, SegFormer-B4 depths 3/8/27/3
 K5_SHAPES = [("s1", 256, 128, 128, 3), ("s2", 512, 64, 64, 8),
              ("s3", 1280, 32, 32, 27), ("s4", 2048, 16, 16, 3)]
+# the same at 1024x1024 frames (batch 1), and a shape whose tiles the image
+# cuts on both axes and whose C is no multiple of the kernel's channel slab
+K5_BIG = [("1024 s1", 256, 256, 256), ("1024 s2", 512, 128, 128),
+          ("1024 s3", 1280, 64, 64), ("1024 s4", 2048, 32, 32)]
+K5_RAGGED = ("ragged", 200, 23, 17)
 
 # "coupling" is the CUDA-core kernel (float32) and "coupling_mma" the
 # tensor-core kernels (bf16 at C=16, C=64 and C=256) of the one K1 wrapper,
@@ -215,6 +227,22 @@ def _time_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, n=20, reps=5):
+    """Device time of one fn() call: n calls captured in a CUDA graph and
+    replayed, so that the host's time to enqueue them is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return _time_ms(graph.replay, iters=reps, warmup=1) / n
 
 
 def _time_pair(kernel, plain, iters=10):
@@ -410,15 +438,18 @@ def phase_kernels(cf, att, dw, device, gen):
         torch.cuda.synchronize()
         _check(f"K4 {name} G={g} N={n} M={m} bf16", got, ref, _bf16_tol(ref),
                worst, "attention")
-    for name, c, h, w, _ in K5_SHAPES:
-        x = torch.randn((2, h, w, c), generator=gen).to(device, bf)
+    k5 = ([(2,) + k[:4] for k in K5_SHAPES] + [(1,) + k for k in K5_BIG]
+          + [(3,) + K5_RAGGED])
+    for b, name, c, h, w in k5:
+        x = torch.randn((b, h, w, c), generator=gen).to(device, bf)
         taps = (torch.randn((3, 3, c), generator=gen) / 3).to(device)
         bias = (torch.randn((c,), generator=gen) * 0.1).to(device)
         got = dw.dwconv3x3_bias_gelu(x, taps, bias)
         ref = dw.dwconv3x3_bias_gelu_plain(x, taps, bias)
         torch.cuda.synchronize()
-        _check(f"K5 {name} C={c} {h}x{w} bf16", got, ref,
-               _bf16_tol(ref, K5_ULPS), worst, "dwconv_gelu")
+        _check(f"K5 {name} C={c} {h}x{w} B={b} bf16 (bit-identical to plain: "
+               f"{torch.equal(got, ref)})", got, ref, _bf16_tol(ref, K5_ULPS),
+               worst, "dwconv_gelu")
     return worst
 
 
@@ -908,20 +939,78 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         _line("attention", name, f"G={g} N={n} M={m}", tk, tp, bound, lib)
         if name == "512 s1":
             tally("attention", count, tk, tp, bound, lib)
-    for name, c, h, w, count in K5_SHAPES:
-        x = torch.randn((batch, h, w, c), generator=gen).to(device, bf)
+    # K5 by graph replay; eagerly too, and cuDNN's bf16 channels_last
+    # depthwise conv with bias, then F.gelu: a yardstick of two calls that
+    # the port never makes (no single call computes K5: library_ms is None)
+    for b, name, c, h, w, count in ([(batch,) + k for k in K5_SHAPES]
+                                    + [(1,) + k + (0,) for k in K5_BIG]):
+        x = torch.randn((b, h, w, c), generator=gen).to(device, bf)
         taps = (torch.randn((3, 3, c), generator=gen) / 3).to(device)
         bias = (torch.randn((c,), generator=gen) * 0.1).to(device)
-        tk, tp = _time_pair(
-            lambda: dw.dwconv3x3_bias_gelu(x, taps, bias),
-            lambda: dw.dwconv3x3_bias_gelu_plain(x, taps, bias))
-        bound = bound_dwconv(batch, h, w, c)
-        _line("dwconv_gelu", name, f"C={c} {h}x{w} B={batch}", tk, tp, bound)
-        tally("dwconv_gelu", count, tk, tp, bound)
+        xc = x.permute(0, 3, 1, 2)             # NCHW view, channels_last
+        wc = taps.permute(2, 0, 1)[:, None].to(bf).contiguous(
+            memory_format=torch.channels_last)
+        bc = bias.to(bf)
+
+        def kernel():
+            return dw.dwconv3x3_bias_gelu(x, taps, bias)
+
+        def cudnn():
+            return torch.nn.functional.gelu(torch.nn.functional.conv2d(
+                xc, wc, bc, padding=1, groups=c))
+
+        plain = _time_ms(lambda: dw.dwconv3x3_bias_gelu_plain(x, taps, bias))
+        g0 = _graph_ms(kernel)
+        eager = _time_ms(kernel)
+        g1 = _graph_ms(kernel)
+        tk = min(g0, g1)
+        yard, yard_eager = _graph_ms(cudnn), _time_ms(cudnn)
+        plain = min(plain, _time_ms(
+            lambda: dw.dwconv3x3_bias_gelu_plain(x, taps, bias)))
+        bound = bound_dwconv(b, h, w, c)
+        _line("dwconv_gelu", name, f"C={c} {h}x{w} B={b}", tk, plain, bound)
+        print(f"time dwconv_gelu {name} C={c} {h}x{w} B={b} bf16: kernel "
+              f"called eagerly {eager:.4f} ms (host-bound where above the "
+              f"graph's {tk:.4f}); yardstick cuDNN bf16 depthwise conv + "
+              f"bias, then F.gelu: {yard:.4f} ms by graph replay, "
+              f"{yard_eager:.4f} ms eagerly")
+        if count:
+            tally("dwconv_gelu", count, tk, plain, bound)
     for r in rec.values():
         r["bound_by"] = ("bytes" if r.pop("bytes_ms") >= r.pop("ops_ms")
                          else "operations")
     return rec
+
+
+def _segment_device_time(segment, what):
+    """One segment call under torch.profiler: the device time its kernels
+    take (their sum; one stream), its share of the call's wall time, and
+    the kernels that take the most. A measurement, not a gate: where the
+    profiler sees no device time, the line says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            segment()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
+                 e.key) for e in prof.key_averages()]
+    except RuntimeError as exc:       # the profiler cannot trace this card
+        print(f"time SegFormer-B4 bf16 {what} device: not measured ({exc})")
+        return
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        print(f"time SegFormer-B4 bf16 {what} device: not measured (the "
+              f"profiler saw no device time)")
+        return
+    top = ", ".join(f"{k[:48]} x{n} {t:.3f} ms"
+                    for t, n, k in sorted(rows, reverse=True)[:6])
+    print(f"time SegFormer-B4 bf16 {what} device: kernels {busy:.2f} ms of "
+          f"a {wall:.2f} ms call under the profiler (device idle "
+          f"{100 * (1 - busy / wall):.1f} %); most: {top}")
 
 
 def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
@@ -962,6 +1051,7 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
         print(f"time SegFormer-B4 bf16 {what}: kernel route {ms:.2f} ms, "
               f"plain route {ms_p:.2f} ms; the host enqueues one call's "
               f"launches in {enqueue:.2f} ms")
+        _segment_device_time(segment, what)
 
     zs = rf.encode_fast(fast, style.to(bf), cfg, packed_latent=True)
     ls, mu = cwct.style_factors_packed(zs, cfg.latent_channels)
@@ -1071,7 +1161,8 @@ def main():
           "in bf16 at 640x360; coupling, transition and transition_half, "
           "the float32 route's kernels, 30, 2 and 2 in float32 at the same "
           "sizes) or of one segment call at 512x512 B=8 in bf16 "
-          "(attention 3, dwconv_gelu 41); bound_ms sums each launch's "
+          "(attention 3, dwconv_gelu 41; dwconv_gelu's ms by CUDA-graph "
+          "replay, the others' eagerly); bound_ms sums each launch's "
           "bound and bound_by names the kind that holds the larger share; "
           "max_abs_err is the largest kernel-vs-plain error of phase 3, in "
           "bf16 (coupling, transition, transition_half: in float32)")

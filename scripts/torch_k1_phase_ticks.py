@@ -1,5 +1,6 @@
 """Where a block of the tensor-core conv kernels spends its cycles: the
-coupling kernel (K1) and the stride-2 transition kernel (K2, K3).
+coupling kernel (K1), the stride-2 transition kernel (K2, K3) and the
+depthwise conv + GELU kernel (K5).
 
     python3 scripts/torch_k1_phase_ticks.py        (one CUDA card, nvcc)
 
@@ -14,6 +15,13 @@ bf16 at batch 8; checks each output against the plain version and prints
 the kernel's time (CUDA events, with the recording off) and the mean cycles
 per phase over all warps of all blocks. Cycles are the SM clock's; the
 phases of a warp include the time it waits at the block's barriers.
+
+K5 (csrc/dwconv.cu) at the four MixFFN shapes of 512x512 frames: its blocks
+are persistent, so it reports per block the wait for the first tile, the
+first tile's math, the waits for the later tiles (load latency that the
+double buffer did not hide) and the rest, the tiles a block took and how
+unevenly the SMs' shares of them end (the last block's end against the
+mean).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ sys.path.insert(0, str(ROOT))
 
 from vstnet_tpu_torch.ops import _build  # noqa: E402
 from vstnet_tpu_torch.ops import coupling_fused as cf  # noqa: E402
+from vstnet_tpu_torch.ops import dwconv as dw  # noqa: E402
 from vstnet_tpu_torch.ops.coupling import pixel_unshuffle  # noqa: E402
 
 WIDE = ("stage first x chunk", "conv1 (stages the other chunks)",
@@ -41,6 +50,7 @@ TRANSITION = ("stage first x chunk (with its pass-through)",
               "conv2 + store h2", "conv3 + output")
 K1_SHAPES = ((256, 128, WIDE), (64, 256, WIDE), (16, 512, NARROW))
 K2_SHAPES = (("T1", 16, 512), ("T2", 64, 256))
+K5_SHAPES = ((256, 128), (512, 64), (1280, 32), (2048, 16))
 BATCH = 8
 # the buffer's row per block (csrc/conv_mma.cuh: VST_TICKS_END) and the
 # smallest tile of any kernel, for an upper bound on the blocks
@@ -91,6 +101,53 @@ def _report(label, run, plain, set_ticks, launches, hw, phases):
     for name, t0, t1 in zip(phases, mean[:-1], mean[1:]):
         print(f"  {name}: {t1 - t0:.0f} cycles "
               f"({100 * (t1 - t0) / mean[last]:.1f} %)")
+
+
+def _report_k5(lib, dev, gen):
+    """K5's persistent blocks: ticks 1-3 are the first tile staged, the
+    first tile computed and every tile done; 4 the cycles waited for tiles
+    after the first, 5 the block's tile count (csrc/dwconv.cu)."""
+    lib.vst_dwconv_set_ticks.argtypes = [ctypes.c_void_p]
+    for c, hw in K5_SHAPES:
+        x = torch.randn((BATCH, hw, hw, c), generator=gen).to(dev,
+                                                               torch.bfloat16)
+        taps = (torch.randn((3, 3, c), generator=gen) / 3).to(dev)
+        bias = (torch.randn((c,), generator=gen) * 0.1).to(dev)
+        for _ in range(3):
+            dw.dwconv3x3_bias_gelu(x, taps, bias)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(10):
+            dw.dwconv3x3_bias_gelu(x, taps, bias)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 10
+        ticks = torch.full((132 * 16, *ROW), -1, dtype=torch.int64,
+                           device=dev)
+        lib.vst_dwconv_set_ticks(ticks.data_ptr())
+        out = dw.dwconv3x3_bias_gelu(x, taps, bias)
+        torch.cuda.synchronize()
+        lib.vst_dwconv_set_ticks(None)
+        err = float((out.float() - dw.dwconv3x3_bias_gelu_plain(
+            x, taps, bias).float()).abs().max())
+        used = ticks[ticks[:, 0, 5] >= 0]
+        warps = int((used[0, :, 5] >= 0).sum())
+        t = used[:, :warps].double().mean(dim=1)   # per block, over warps
+        first, math1, total = t[:, 1], t[:, 2] - t[:, 1], t[:, 3]
+        waited, tiles = t[:, 4], t[:, 5]
+        rest = total - first - waited
+        print(f"K5 C={c} {hw}x{hw} B={BATCH} bf16: {ms:.4f} ms (eager), "
+              f"{used.shape[0]} blocks of {warps} warps, "
+              f"{float(tiles.mean()):.2f} tiles a block (min "
+              f"{float(tiles.min()):.0f}, max {float(tiles.max()):.0f}), "
+              f"max abs err vs plain {err:.3e}")
+        print(f"  per block: first tile staged {float(first.mean()):.0f} "
+              f"cycles, first tile's math {float(math1.mean()):.0f}, later "
+              f"waits {float(waited.mean()):.0f}, math of every tile "
+              f"{float(rest.mean()):.0f} ({float((rest / tiles).mean()):.0f} "
+              f"a tile), whole block {float(total.mean()):.0f} (max "
+              f"{float(total.max()):.0f})")
 
 
 def main():
@@ -144,6 +201,7 @@ def main():
                     lambda: plain(*args, wp, inverse=inverse)[not inverse],
                     lib.vst_transition_mma_set_ticks,
                     lambda: fn.mma_launches, hw, TRANSITION)
+    _report_k5(lib, dev, gen)
 
 
 if __name__ == "__main__":

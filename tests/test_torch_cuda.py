@@ -287,9 +287,21 @@ def test_attention_kernel_reads_strided_views(dev):
         att.sr_attention(q[..., :32], k[..., :32], v[..., :32], 0.125)
 
 
-@pytest.mark.parametrize("b,h,w,c", [(2, 9, 7, 128), (1, 1, 5, 256),
-                                     (2, 16, 16, 2048), (1, 33, 20, 8)])
+@pytest.mark.parametrize("b,h,w,c", [
+    (2, 9, 7, 128), (1, 1, 5, 256), (2, 16, 16, 2048), (1, 33, 20, 8),
+    # the MixFFN shapes of 512x512 frames, and of 1024x1024 frames
+    (2, 128, 128, 256), (2, 64, 64, 512), (2, 32, 32, 1280),
+    (1, 256, 256, 256), (1, 128, 128, 512), (1, 64, 64, 1280),
+    (1, 32, 32, 2048),
+    # tiles cut by the image on both axes, one row, one column, one pixel
+    (3, 45, 80, 256), (1, 7, 129, 512), (2, 23, 17, 1280), (1, 1, 1, 256),
+    (2, 13, 1, 128), (1, 12, 9, 2048),
+    # C a multiple of 8 but not of the kernel's channel slab
+    (1, 17, 40, 200), (2, 11, 9, 8), (1, 20, 6, 72)])
 def test_dwconv_gelu_kernel_matches_plain(dev, b, h, w, c):
+    """K5 against its plain version: within one bf16 ulp of the output's
+    scale, and bit for bit, since both sum the nine taps in (ky, kx) order
+    with fused multiply-adds from 0 and take the same erff."""
     gen = torch.Generator().manual_seed(c + h)
     x = torch.randn((b, h, w, c), generator=gen).to(dev, torch.bfloat16)
     taps = (torch.randn((3, 3, c), generator=gen) / 3).to(dev)
@@ -299,6 +311,7 @@ def test_dwconv_gelu_kernel_matches_plain(dev, b, h, w, c):
     ref = dw.dwconv3x3_bias_gelu_plain(x, taps, bias)
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert _err(got, ref) <= _tol(ref, torch.bfloat16) / 2
+    assert torch.equal(got, ref)
     assert dw.dwconv3x3_bias_gelu.launches == before + 1
     assert torch.equal(dw.dwconv3x3_bias_gelu(x, taps[:, :, None], bias), got)
     with pytest.raises(ValueError):    # float32 is not routed to the kernel
@@ -348,6 +361,11 @@ def test_wrappers_reject_bad_inputs(dev, gen):
             torch.randn((1, 16, 9, 8), device=dev),
             torch.randn((1, 16, 9, 8), device=dev),
             cf.pack_transition_weights(_weights(gen, 16, 16, 64, dev)))
+    flat = torch.randn(1 + 4 * 4 * 8, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # not 16-byte aligned: no TMA copy
+        dw.dwconv3x3_bias_gelu(flat[1:].view(1, 4, 4, 8),
+                               torch.ones((3, 3, 8), device=dev),
+                               torch.zeros((8,), device=dev))
 
 
 @pytest.mark.parametrize("w", [32, 56, 512])

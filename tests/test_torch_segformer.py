@@ -109,7 +109,9 @@ def tiny_pair():
 # K5 and K4: plain versions against the Pallas kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,h,w,c", [(1, 8, 8, 128), (2, 12, 16, 256)])
+@pytest.mark.parametrize("b,h,w,c", [(1, 8, 8, 128), (2, 12, 16, 256),
+                                     (1, 1, 5, 256), (2, 6, 1, 128),
+                                     (1, 9, 11, 200), (2, 5, 7, 8)])
 def test_dwconv_gelu_plain_matches_jax_kernel(rng, b, h, w, c):
     x_t, x_j = _bf16(rng.standard_normal((b, h, w, c)).astype(np.float32))
     taps = (rng.standard_normal((3, 3, 1, c)) * 0.3).astype(np.float32)
@@ -338,6 +340,55 @@ def test_bf16_mixffn_takes_the_fused_wrapper(rng, tiny_pair, monkeypatch):
     sf.segment_logits(net, x, half=True)
     assert calls == [(1, 8, 8, 256), (1, 4, 4, 512), (1, 2, 2, 1280),
                      (1, 1, 1, 2048)]
+
+
+def test_mixffn_taps_are_laid_out_once(rng, monkeypatch):
+    """The bf16 route hands K5 contiguous float32 (3, 3, C) taps equal to
+    the permuted depthwise weight, the same tensors on every call (no copy
+    per call), laid out anew after load_state_dict; the logits are those
+    of taps laid out at every call."""
+    net = sf.SegFormer(TINY, device="cpu").init_weights(
+        torch.Generator().manual_seed(4))
+    seen = []
+    orig = sf.dwconv3x3_bias_gelu
+
+    def recorder(x, w, b):
+        seen.append(w)
+        return orig(x, w, b)
+
+    monkeypatch.setattr(sf, "dwconv3x3_bias_gelu", recorder)
+    x = torch.from_numpy(rng.uniform(size=(1, 32, 32, 3)).astype(np.float32))
+
+    def taps_of(model):
+        return [blk.mlp.dwconv.dwconv.weight.reshape(-1, 3, 3).permute(1, 2, 0)
+                for s in range(1, 5)
+                for blk in getattr(model.backbone, f"block{s}")]
+
+    logits = sf.segment_logits(net, x, half=True)
+    first, seen[:] = list(seen), []
+    assert len(first) == 4
+    for got, want in zip(first, taps_of(net)):
+        assert got.is_contiguous() and got.dtype == torch.float32
+        assert torch.equal(got, want)
+    assert torch.equal(sf.segment_logits(net, x, half=True), logits)
+    assert all(a is b for a, b in zip(seen, first))     # made once
+
+    # the same logits as taps laid out at every call (the twin without them)
+    for mod in net.half_copy().modules():
+        if isinstance(mod, sf.MixFFN):
+            mod.taps = None
+    seen[:] = []
+    assert torch.equal(sf.segment_logits(net, x, half=True), logits)
+    assert all(a is not b for a, b in zip(seen, first))
+
+    state = {k: v * 2 if k.endswith("dwconv.dwconv.weight") else v
+             for k, v in net.state_dict().items()}
+    net.load_state_dict(state)
+    seen[:] = []
+    sf.segment_logits(net, x, half=True)
+    for got, old, want in zip(seen, first, taps_of(net)):
+        assert got.is_contiguous() and torch.equal(got, want)
+        assert torch.equal(got, 2 * old)
 
 
 def test_segmenter_pads_crops_and_remaps(rng, tmp_path):

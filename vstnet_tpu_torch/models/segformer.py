@@ -160,9 +160,19 @@ class DWConv(nn.Module):
                                 device=device)
 
 
+def _dw_taps(conv):
+    """A depthwise conv's (C, 1, 3, 3) weight as K5's contiguous float32
+    (3, 3, C) taps."""
+    c = conv.weight.shape[0]
+    return conv.weight.detach().reshape(c, 3, 3).permute(1, 2, 0).float(
+        ).contiguous()
+
+
 class MixFFN(nn.Module):
     """fc1 -> 3x3 depthwise conv -> GELU -> fc2. bf16 activations whose
-    hidden width is a multiple of 128 take the fused kernel (K5)."""
+    hidden width is a multiple of 128 take the fused kernel (K5), with the
+    taps that `SegFormer.half_copy` lays out once (`taps`); without them
+    every call lays them out anew."""
 
     def __init__(self, dim, device):
         super().__init__()
@@ -170,6 +180,7 @@ class MixFFN(nn.Module):
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.dwconv = DWConv(hidden, device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
+        self.taps = None
 
     def forward(self, x, h, w):
         b, n, _ = x.shape
@@ -178,7 +189,7 @@ class MixFFN(nn.Module):
         xs = x.reshape(b, h, w, c)
         dw = self.dwconv.dwconv
         if x.dtype == torch.bfloat16 and c % 128 == 0:
-            taps = dw.weight.reshape(c, 3, 3).permute(1, 2, 0)
+            taps = self.taps if self.taps is not None else _dw_taps(dw)
             xs = dwconv3x3_bias_gelu(xs.contiguous(), taps, dw.bias)
         else:
             xs = F.gelu(_conv_nhwc(xs, dw))
@@ -333,7 +344,8 @@ class SegFormer(nn.Module):
         """A copy whose linear and conv weights and biases (the depthwise
         taps excepted) are bf16, made once: the bf16 route casts them at
         every use otherwise. Norms, the BatchNorm and the depthwise taps
-        stay float32, where the bf16 route uses them."""
+        stay float32, where the bf16 route uses them; each MixFFN's taps are
+        laid out for K5 here too."""
         if self._half is None:
             twin = copy.deepcopy(self)
             for mod in twin.modules():
@@ -341,6 +353,8 @@ class SegFormer(nn.Module):
                         and not (isinstance(mod, nn.Conv2d)
                                  and mod.groups > 1)):
                     mod.to(torch.bfloat16)
+                elif isinstance(mod, MixFFN):
+                    mod.taps = _dw_taps(mod.dwconv.dwconv)
             self._half = (twin,)     # a tuple: not a registered submodule
         return self._half[0]
 

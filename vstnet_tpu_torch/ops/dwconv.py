@@ -44,15 +44,18 @@ def dwconv3x3_bias_gelu(x, w, b):
 
     w: (3, 3, C) depthwise taps (HWIO (3, 3, 1, C) also taken), b: (C,);
     both are used at float32 precision. On a CUDA device x must be a
-    contiguous bf16 tensor with C a multiple of 8."""
+    contiguous bf16 tensor with C a multiple of 8, 16-byte aligned (the
+    kernel stages it by TMA)."""
     if x.device.type == "cpu":
         return dwconv3x3_bias_gelu_plain(x, w, b)
     if (not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4
-            or not x.is_contiguous() or x.shape[-1] % 8):
+            or not x.is_contiguous() or x.shape[-1] % 8
+            or x.data_ptr() % 16):
         raise ValueError(
-            "dwconv3x3_bias_gelu: needs a contiguous bf16 NHWC tensor on a "
-            f"CUDA device with C % 8 == 0; got {tuple(x.shape)} {x.dtype} "
-            f"{x.device} contiguous={x.is_contiguous()}")
+            "dwconv3x3_bias_gelu: needs a contiguous, 16-byte aligned bf16 "
+            f"NHWC tensor on a CUDA device with C % 8 == 0; got "
+            f"{tuple(x.shape)} {x.dtype} {x.device} "
+            f"contiguous={x.is_contiguous()}")
     bsz, h, wd, c = x.shape
     wt = _taps(w, c)
     bias = b.float().contiguous()
