@@ -1,5 +1,5 @@
-"""The machine code of a kernel source, counted by opcode (one CUDA toolkit;
-no card needed, but this sandbox has no nvcc):
+"""The machine code of a kernel source, counted by opcode (needs the CUDA
+toolkit's nvcc and cuobjdump, not a card):
 
     python3 scripts/torch_sass_histogram.py vstnet_tpu_torch/csrc/dwconv.cu
 
