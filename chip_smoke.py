@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-Drives the port's two video paths (vstnet_tpu_torch) through the entry
-points a user calls, at the full width and depth of PHOTO_CONFIG and
+Drives the port's two video paths (vstnet_tpu_torch) and its two CLIs
+through the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
 SegFormer-B4 on 512x512 frames in bf16, with random weights made from a
 seed. Phases, in order; any failure raises and the process exits non-zero:
 
@@ -51,6 +51,23 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
               with CUDA events.
+  7. cli      (run after phase 5, before the timings) the command-line
+              entry points as a user runs them, on synthetic files: the
+              video CLI on a 16-frame 1280x720 MJPEG clip, --batch 8, the
+              default --max_size 1280, in bf16 global (twice), --alpha_c
+              0.5, --auto_seg --seg_size -1 and f32, then on an 8-frame
+              640x360 clip in bf16 and f32; every bf16 batch launches
+              coupling_mma 60 and the stride-2 blocks' kernels (auto-seg:
+              and one segment call's attention and dwconv_gelu), its input
+              frames equal an independent decode of the clip, and the
+              frames handed to the writer equal what the video program,
+              made anew, gives on the same frames and factors bit for bit;
+              bf16 vs f32 >= 40 dB; the CLI's end-to-end frames/s beside
+              the card's name and power limit. The image CLI on a 1024x768
+              content in --fast and float32 (global, --auto_seg, --styles
+              A B --alpha_s 0.3 0.7), each --fast output >= 40 dB against
+              float32 (auto-seg: on the --fast run's saved masks); then
+              photo_pipeline(fast=True) against photo_pipeline().
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -115,6 +132,10 @@ K1_SHAPES = [("stage1", 16, 512, 512, 10), ("stage2", 64, 256, 256, 9),
              ("stage3", 256, 128, 128, 9), ("reduction", 256, 128, 128, 2)]
 K2_SHAPES = [("T1", 16, 512, 512, 1), ("T2", 64, 256, 256, 1)]
 K3_SHAPES = [("T1", 16, 360, 640, 1), ("T2", 64, 180, 320, 1)]
+# the stride-2 blocks of 1280x720 frames, which the video CLI's default
+# --max_size keeps: T1 takes K2 (half-res width 640), T2 K3 (width 320)
+K23_HD = [("T1 1280x720", 16, 720, 1280, 1), ("T2 1280x720", 64, 360, 640,
+                                              1)]
 # (C, full-res H, W) of the tensor-core transition kernel's extra checks:
 # half-res planes that cut the 16x16 tile on both axes, lie below it, are
 # the smallest a reflect pad allows, or fit it exactly
@@ -299,11 +320,15 @@ def bound_dwconv(b, h, w, c):
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _check(label, got, ref, tol, worst=None, key=None):
+def _check(label, got, ref, tol, worst=None, key=None, exact=False):
+    """got against ref within tol; exact=True (the CUDA-core kernels in
+    float32, which sum in their plain versions' order) also bit for bit."""
     err = _max_err(got, ref)
-    print(f"{label}: max abs err {err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        raise AssertionError(f"{label}: {err} > {tol}")
+    same = torch.equal(got, ref)
+    print(f"{label}: max abs err {err:.3e} (tol {tol:.3e}"
+          + (f", bit-identical {same})" if exact else ")"))
+    if not err <= tol or (exact and not same):
+        raise AssertionError(f"{label}: {err} > {tol} or not bit-identical")
     if worst is not None:
         worst[key] = max(worst[key], err)
 
@@ -338,7 +363,7 @@ def _k2_k3_checks(cf, tag, x1, x2, wp, worst):
     torch.cuda.synchronize()
     tol = F32_TOL if f32 else _bf16_tol(r1)
     for what, got, ref in (("fwd", g1, r1), ("inv", i0, j0)):
-        _check(f"K2 {tag} {what}", got, ref, tol, keep, k2)
+        _check(f"K2 {tag} {what}", got, ref, tol, keep, k2, exact=f32)
     if not (torch.equal(g0, r0) and torch.equal(i1, j1)):
         raise AssertionError(f"K2 {tag}: (un)shuffled copy differs")
     b0, b1 = cf.fused_transition(g1, g0, wp, inverse=True)
@@ -355,7 +380,7 @@ def _k2_k3_checks(cf, tag, x1, x2, wp, worst):
     n0, n1 = cf.transition_half_plain(h1, h0, wp, inverse=True)
     torch.cuda.synchronize()
     for what, got, ref in (("fwd", h1, s1), ("inv", m0, n0)):
-        _check(f"K3 {tag} {what}", got, ref, tol, keep, k3)
+        _check(f"K3 {tag} {what}", got, ref, tol, keep, k3, exact=f32)
     if not (h0 is b_u and m1 is h0):
         raise AssertionError(f"K3 {tag}: pass-through stream copied")
     same = (torch.equal(g0, h0) and torch.equal(g1, h1)
@@ -391,7 +416,7 @@ def phase_kernels(cf, att, dw, device, gen):
                 tol = F32_TOL if dt == torch.float32 else _bf16_tol(ref)
                 _check(f"K1 {name} C={c} {h}x{w} {_dt(dt)} {route} "
                        f"{'inv' if inv else 'fwd'}", got, ref, tol, worst,
-                       key)
+                       key, exact=dt == torch.float32)
             if dt == torch.float32:
                 y = cf.fused_coupling(x1, x2, wp)
                 back = cf.fused_coupling(y, x2, wp, inverse=True)
@@ -413,7 +438,7 @@ def phase_kernels(cf, att, dw, device, gen):
                    f"{'inv' if inv else 'fwd'}", got, ref, _bf16_tol(ref),
                    worst, "coupling_mma")
         _k1_bf16_round_trip(cf, f"K1 tails C={c} {h}x{w}", x1, x2, wp)
-    for name, c, h, w, _ in K2_SHAPES + K3_SHAPES:
+    for name, c, h, w, _ in K2_SHAPES + K3_SHAPES + K23_HD:
         branch = _rand_branch(gen, c, c, 4 * c, device)
         for dt in (torch.float32, bf):
             wp = cf.pack_transition_weights(branch, dt)
@@ -1110,6 +1135,397 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
           f"{base / 2 ** 20:.1f} MiB already held")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the command-line entry points
+# ---------------------------------------------------------------------------
+
+# (frames, H, W) of the video CLI's clips: 16 frames at 1280x720, which the
+# default --max_size 1280 keeps (K2 at T1, K3 at T2), at --batch 8; one
+# batch at 640x360 (K3 at both stride-2 blocks). (H, W) of the image CLI's
+# content and styles.
+CLI_CLIP = (16, 720, 1280)
+CLI_WIDE = (8, 360, 640)
+CLI_IMAGE = (768, 1024)
+CLI_BATCH = 8
+# launches per bf16 batch of the video programs: 30 of K1 and one of each
+# stride-2 block per encode and per decode
+CLI_PER_BATCH = {"1280x720": {"coupling_mma": 60, "transition_mma": 2,
+                              "transition_half_mma": 2},
+                 "640x360": {"coupling_mma": 60, "transition_half_mma": 4}}
+
+
+class _CliProbe:
+    """Within the block, the frames that the CLIs hand their video writers
+    are kept by file name, and every call of a program that
+    make_fused_video_fn or make_masked_fused_video_fn made is kept with its
+    factory's arguments, its own arguments, its input frames and the
+    launches it made."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.frames, self.calls = {}, []
+
+    def __enter__(self):
+        import os
+
+        import numpy as np
+
+        from vstnet_tpu_torch.io import video
+        from vstnet_tpu_torch.models import pipeline
+
+        probe = self
+
+        class Recording(video.AsyncWriter):
+            def write(self, frame):
+                probe.frames.setdefault(os.path.basename(self.path),
+                                        []).append(np.array(frame))
+                super().write(frame)
+
+        self.video, self.pipeline = video, pipeline
+        self.saved = (video.AsyncWriter, pipeline.make_fused_video_fn,
+                      pipeline.make_masked_fused_video_fn)
+        video.AsyncWriter = Recording
+        pipeline.make_fused_video_fn = self._wrap(self.saved[1])
+        pipeline.make_masked_fused_video_fn = self._wrap(self.saved[2])
+        return self
+
+    def _wrap(self, factory):
+        masked = factory is self.saved[2]
+
+        def make(*fa, **fkw):
+            fn = factory(*fa, **fkw)
+
+            def run(*args):
+                before = self.ops.launch_counts()
+                out = fn(*args)
+                after = self.ops.launch_counts()
+                self.calls.append({
+                    "factory": factory, "make": (fa, fkw), "args": args,
+                    "masked": masked, "frames": args[5 if masked else 1],
+                    "launches": {k: v - before[k] for k, v in after.items()
+                                 if v != before[k]}})
+                return out
+            return run
+        return make
+
+    def __exit__(self, *exc):
+        (self.video.AsyncWriter, self.pipeline.make_fused_video_fn,
+         self.pipeline.make_masked_fused_video_fn) = self.saved
+
+
+def _run_cli(main, argv):
+    """main(argv) with its standard output kept and echoed; returns (what
+    main returned, the output, the wall seconds of the call)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"  | {line}")
+    return ret, out, wall
+
+
+def _u8_psnr(a, b):
+    import numpy as np
+
+    d = a.astype(np.float64) / 255.0 - b.astype(np.float64) / 255.0
+    mse = float((d ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def _write_inputs(gen, root, device):
+    """The synthetic inputs, written as a user's would be: MJPEG clips by
+    the port's AviWriter, PNG content and styles."""
+    from PIL import Image
+
+    from vstnet_tpu_torch.io.video import AviWriter
+
+    for name, (n, h, w) in (("clip", CLI_CLIP), ("wide", CLI_WIDE)):
+        frames = (_frames(gen, n, (h, w), device) * 255).round().to(
+            torch.uint8).cpu().numpy()
+        with AviWriter(f"{root}/{name}.avi", fps=10) as wr:
+            for f in frames:
+                wr.write(f)
+    for name in ("content", "style", "style2"):
+        img = (_frames(gen, 1, CLI_IMAGE, device)[0] * 255).round().to(
+            torch.uint8).cpu().numpy()
+        Image.fromarray(img).save(f"{root}/{name}.png")
+
+
+def _check_video_calls(ops, probe, clip, size, written, seg_calls=None):
+    """The video programs' calls of one CLI run: their input frames equal
+    an independent decode, upload and resize of the clip; each made the
+    launches of one bf16 batch (seg_calls: the launches of one segment
+    call on the program's segmenter input besides); and each, made anew
+    from its factory and called again on the same frames and factors,
+    gives bit for bit the frames that the CLI handed its writer (and the
+    masks of its label video)."""
+    import numpy as np
+
+    from vstnet_tpu_torch.io.video import read_frames
+    from vstnet_tpu_torch.ops.resize import resize_bilinear
+
+    frames_iter, _, _ = read_frames(clip)
+    decoded = np.stack(list(frames_iter))
+    out_frames = np.stack(written[0])
+    labels = np.stack(written[1]) if len(written) > 1 else None
+    want = dict(CLI_PER_BATCH[size], **(seg_calls or {}))
+    want = {k: v for k, v in want.items() if v}
+    lo = 0
+    for call in probe.calls:
+        masked, x = call["masked"], call["frames"]
+        b, h, w = x.shape[:3]
+        n = min(b, len(decoded) - lo)
+        chunk = list(decoded[lo:lo + n]) + [decoded[lo + n - 1]] * (b - n)
+        ref_in = torch.from_numpy(np.stack(chunk)).to(x.device)
+        ref_in = resize_bilinear(ref_in.float() / 255.0, h, w)
+        if not torch.equal(ref_in, x):
+            raise AssertionError(f"{clip} batch at {lo}: input frames differ "
+                                 f"from the clip's")
+        if call["launches"] != want:
+            raise AssertionError(f"{clip} batch at {lo}: launches "
+                                 f"{call['launches']}, want {want}")
+        fa, fkw = call["make"]
+        again = call["factory"](*fa, **fkw)(*call["args"])
+        frames = again[0] if masked else again
+        if not np.array_equal(frames[:n].cpu().numpy(),
+                              out_frames[lo:lo + n]):
+            raise AssertionError(f"{clip} batch at {lo}: the written frames "
+                                 f"differ from the program's")
+        if masked:
+            m = again[1][:n].cpu().numpy().astype(np.uint8)
+            if not np.array_equal(m, labels[lo:lo + n, ..., 0]):
+                raise AssertionError(f"{clip} batch at {lo}: the label "
+                                     f"video differs from the masks")
+        lo += n
+    if lo != len(decoded) or len(out_frames) != len(decoded):
+        raise AssertionError(f"{clip}: {lo} frames stylized, "
+                             f"{len(out_frames)} written, {len(decoded)} in")
+
+
+def _segment_call_launches(ops, call):
+    """The launches of one bf16 segment call on the masked program's
+    segmenter input (its frames resized to seg_hw)."""
+    from vstnet_tpu_torch.models import segformer as sf
+    from vstnet_tpu_torch.ops.resize import resize_bilinear
+
+    seg_net, x = call["args"][1], call["frames"]
+    seg_hw = call["make"][1].get("seg_hw")
+    if seg_hw is not None and tuple(seg_hw) != tuple(x.shape[1:3]):
+        x = resize_bilinear(x, *seg_hw)
+    before = ops.launch_counts()
+    sf.segment_mask(seg_net, x, half=True)
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in ("attention", "dwconv_gelu")}
+
+
+def _cli_breakdown(root, clip, frames, calls):
+    """Where a video CLI run's time goes, each part alone: the host's JPEG
+    decode of the clip (one thread, as the CLI's decode-ahead thread), the
+    container writer's encode (as the CLI's writer thread), and each video
+    program's device time a batch (CUDA events), its own run's call made
+    anew."""
+    from vstnet_tpu_torch.io.video import (
+        have_cv2,
+        make_video_writer,
+        read_frames,
+    )
+
+    t0 = time.perf_counter()
+    n = len(list(read_frames(clip)[0]))
+    decode = (time.perf_counter() - t0) * 1e3 / n
+    ext = ".mp4" if have_cv2() else ".avi"
+    t0 = time.perf_counter()
+    writer = make_video_writer(f"{root}/writer_probe{ext}", fps=10)
+    for f in frames:
+        writer.write(f)
+    writer.close()
+    write = (time.perf_counter() - t0) * 1e3 / len(frames)
+    parts = [f"JPEG decode {decode:.2f} ms a frame, {ext} write "
+             f"{write:.2f} ms a frame (host, one thread each)"]
+    for tag, call in calls.items():
+        fn = call["factory"](*call["make"][0], **call["make"][1])
+        b = call["frames"].shape[0]
+        ms = _time_ms(lambda: fn(*call["args"]), iters=3, warmup=1)
+        parts.append(f"{tag} program {ms:.2f} ms a batch of {b} "
+                     f"({b * 1000.0 / ms:.2f} frames/s on the device alone)")
+    print("video CLI 1280x720 breakdown: " + "; ".join(parts))
+
+
+def phase_cli(ops, device, gen, total, smi):
+    """The video CLI at 1280x720 in its four routes and at 640x360, and the
+    image CLI at 1024x768 in its --fast and float32 routes, with random
+    weights from their default seed; then photo_pipeline, fused against
+    float32."""
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from vstnet_tpu_torch.cli import image_transfer, video_transfer
+    from vstnet_tpu_torch.models import segformer as sf
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    tmp = tempfile.TemporaryDirectory(prefix="vstnet_cli_")
+    root = tmp.name
+    _write_inputs(gen, root, device)
+    style = f"{root}/style.png"
+
+    def video(tag, clip, *flags):
+        """One video CLI run: its launches join the main paths' counts."""
+        out_dir = f"{root}/{tag}"
+        argv = ["--video", f"{root}/{clip}.avi", "--style", style,
+                "--out_dir", out_dir, "--batch", str(CLI_BATCH), *flags]
+        with _CliProbe(ops) as probe:
+            ops.reset_launch_counts()
+            path, out, wall = _run_cli(video_transfer.main, argv)
+            counts = ops.launch_counts()
+        _add(total, counts)
+        fps = float(re.search(r"([\d.]+) frames/sec end-to-end",
+                              out).group(1))
+        name = os.path.basename(path)
+        written = [probe.frames[name]]
+        if "--auto_seg" in flags:
+            written.append(probe.frames["content_seg_label.avi"])
+        print(f"video CLI {tag}: {fps:.2f} frames/s end to end (the CLI's "
+              f"clock: decode, upload, stylize, readback and writes), main() "
+              f"{wall:.2f} s with set-up; launches {counts}")
+        return probe, written, fps
+
+    n, h, w = CLI_CLIP
+    clip = f"{root}/clip.avi"
+    fps = {}
+    runs = {}
+    probes = {}
+    for tag, flags in (("bf16 global", ()), ("bf16 global again", ()),
+                       ("bf16 alpha_c 0.5", ("--alpha_c", "0.5")),
+                       ("bf16 auto_seg", ("--auto_seg", "--seg_size", "-1")),
+                       ("f32 global", ("--precision", "f32"))):
+        probe, written, fps[tag] = video(tag.replace(" ", "_"), "clip",
+                                         *flags)
+        runs[tag], probes[tag] = written, probe
+        if tag.startswith("bf16"):
+            seg = None
+            if "--auto_seg" in flags:
+                seg = _segment_call_launches(ops, probe.calls[0])
+                print(f"video CLI {tag}: segmenter input "
+                      f"{probe.calls[0]['make'][1].get('seg_hw') or 'native'}"
+                      f", one segment call launches {seg}")
+            _check_video_calls(ops, probe, clip, "1280x720", written, seg)
+            print(f"video CLI {tag}: {len(probe.calls)} batches, each with "
+                  f"the launches of one bf16 batch; inputs equal the clip's "
+                  f"decode; written frames equal the program's bit for bit")
+        elif probe.calls:
+            raise AssertionError("the f32 route called a fused program")
+    p = _u8_psnr(np.stack(runs["bf16 global"][0]),
+                 np.stack(runs["f32 global"][0]))
+    print(f"gate video CLI bf16 vs f32 at 1280x720: PSNR {p:.2f} dB (>= 40)")
+    if not p >= PSNR_GATE:
+        raise AssertionError(f"video CLI bf16 PSNR {p}")
+    for tag, written in runs.items():
+        got = np.stack(written[0])
+        if got.shape != (n, h, w, 3) or got.dtype != np.uint8:
+            raise AssertionError(f"video CLI {tag}: {got.shape} {got.dtype}")
+    print(f"video CLI end to end at 1280x720, 16 frames, --batch 8, on "
+          f"{smi}: " + ", ".join(f"{k} {v:.2f} frames/s"
+                                 for k, v in fps.items()))
+    _cli_breakdown(root, clip, runs["bf16 global"][0],
+                   {k: probes[k].calls[0] for k in ("bf16 global again",
+                                                    "bf16 auto_seg")})
+
+    wide = {}
+    for tag, flags in (("bf16 640x360", ()),
+                       ("f32 640x360", ("--precision", "f32"))):
+        probe, written, _ = video(tag.replace(" ", "_"), "wide", *flags)
+        wide[tag] = np.stack(written[0])
+        if tag.startswith("bf16"):
+            _check_video_calls(ops, probe, f"{root}/wide.avi", "640x360",
+                               written)
+    p = _u8_psnr(wide["bf16 640x360"], wide["f32 640x360"])
+    print(f"gate video CLI bf16 vs f32 at 640x360: PSNR {p:.2f} dB (>= 40)")
+    if not p >= PSNR_GATE:
+        raise AssertionError(f"video CLI 640x360 PSNR {p}")
+
+    def image(tag, *flags):
+        out_dir = f"{root}/img_{tag.replace(' ', '_')}"
+        argv = ["--content", f"{root}/content.png", "--out_dir", out_dir,
+                *flags]
+        if "--styles" not in flags:
+            argv += ["--style", style]
+        ops.reset_launch_counts()
+        path, _, wall = _run_cli(image_transfer.main, argv)
+        counts = ops.launch_counts()
+        _add(total, counts)
+        got = np.asarray(Image.open(path))
+        if got.shape != CLI_IMAGE + (3,):
+            raise AssertionError(f"image CLI {tag}: {got.shape}")
+        print(f"image CLI {tag} {CLI_IMAGE[1]}x{CLI_IMAGE[0]}: main() "
+              f"{wall:.3f} s; launches {counts}")
+        return got, out_dir
+
+    styles = ("--styles", style, f"{root}/style2.png", "--alpha_s", "0.3",
+              "0.7")
+    img = {}
+    for tag, flags in (("fast global", ("--fast",)),
+                       ("f32 global", ()),
+                       ("fast global again", ("--fast",)),
+                       ("fast auto_seg", ("--fast", "--auto_seg")),
+                       ("f32 auto_seg", ("--auto_seg",)),
+                       ("fast styles", ("--fast",) + styles),
+                       ("f32 styles", styles)):
+        img[tag] = image(tag, *flags)
+    seg_dir = f"{img['fast auto_seg'][1]}/segmentation"
+    img["f32 on the fast masks"] = image(
+        "f32 on the fast masks", "--content_seg",
+        f"{seg_dir}/content_seg_label.png", "--style_seg",
+        f"{seg_dir}/style_seg_label.png")
+    agree = float((np.asarray(Image.open(f"{seg_dir}/content_seg_label.png"))
+                   == np.asarray(Image.open(
+                       f"{img['f32 auto_seg'][1]}/segmentation/"
+                       "content_seg_label.png"))).mean())
+    print(f"image CLI auto_seg: the bf16 segmenter's content mask agrees "
+          f"with the float32 one's on {agree:.5f} of the pixels")
+    for fast_tag, ref_tag in (("fast global", "f32 global"),
+                              ("fast auto_seg", "f32 on the fast masks"),
+                              ("fast styles", "f32 styles")):
+        p = _u8_psnr(img[fast_tag][0], img[ref_tag][0])
+        print(f"gate image CLI {fast_tag} vs {ref_tag}: PSNR {p:.2f} dB "
+              f"(>= 40)")
+        if not p >= PSNR_GATE:
+            raise AssertionError(f"image CLI {fast_tag} PSNR {p}")
+
+    # photo_pipeline with a bf16 segmenter attached: both routes get the
+    # same masks
+    from vstnet_tpu_torch.io.image import device_put_image, load_image
+
+    model = StyleModel.random_init(
+        seed=0, device=device,
+        segmenter=sf.Segmenter.load(None, seed=0, half=True, device=device))
+    c = device_put_image(load_image(f"{root}/content.png", as_uint8=True),
+                         device)
+    s = device_put_image(load_image(style, as_uint8=True), device)
+    ops.reset_launch_counts()
+    fused = model.photo_pipeline(c, s, fast=True)
+    counts = ops.launch_counts()
+    _add(total, counts)
+    ref = model.photo_pipeline(c, s)
+    p = _psnr(fused, ref)
+    print(f"gate photo_pipeline fast vs float32 {CLI_IMAGE[1]}x"
+          f"{CLI_IMAGE[0]}: PSNR {p:.2f} dB (>= 40); launches {counts}")
+    if not p >= PSNR_GATE:
+        raise AssertionError(f"photo_pipeline PSNR {p}")
+    tmp.cleanup()
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -1140,6 +1556,8 @@ def main():
     print(f"phase global done at {time.perf_counter() - t0:.1f} s")
     seg, region, plan = phase_masked(ops, model, style, device, gen, total)
     print(f"phase masked done at {time.perf_counter() - t0:.1f} s")
+    phase_cli(ops, device, gen, total, smi)
+    print(f"phase cli done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -1154,8 +1572,8 @@ def main():
          "max_abs_err": worst[k], **rec[k]} for k in KERNELS]}
     print("kernels: launches are those of the main paths' runs (global 2 "
           "bf16 batches and 1 float32 batch at 512x512 and 1 float32 batch "
-          "at 640x360, masked 2 batches, seg 256 and 640x360 one each); ms, "
-          "plain_ms, bound_ms and library_ms are sums over the launches of "
+          "at 640x360, masked 2 batches, seg 256 and 640x360 one each, "
+          "phase 7's CLI runs and photo_pipeline); ms, plain_ms, bound_ms and library_ms are sums over the launches of "
           "one encode at B=8 (coupling_mma 30 "
           "and transition_mma 2 in bf16 at 512x512, transition_half_mma 2 "
           "in bf16 at 640x360; coupling, transition and transition_half, "

@@ -412,3 +412,90 @@ def test_fast_path_bf16_takes_the_tensor_core_kernels(dev, w, want):
     assert cf.fused_coupling.mma_launches > 0
     mse = float(((back.float() - x) ** 2).mean())
     assert 10 * np.log10(1.0 / mse) > 45.0
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_float32_transition_sums_in_its_plain_versions_order(dev, gen,
+                                                             inverse):
+    """The 640x360 frame's T2 block (C=64, full-res 180x320, half-res width
+    160) in float32, where cuDNN would take an FFT for the plain version's
+    second conv: the plain version runs PyTorch's own conv there, which
+    sums in the kernel's order, so K2 and K3 equal it bit for bit."""
+    wp = cf.pack_transition_weights(_weights(gen, 64, 64, 256, dev),
+                                    torch.float32)
+    x1, x2 = (torch.from_numpy(gen.standard_normal(
+        (2, 64, 180, 320)).astype(np.float32)).to(dev) for _ in range(2))
+    if inverse:
+        x1, x2 = cf.transition_block_plain(x1, x2, wp)[::-1]
+    got = cf.fused_transition(x1, x2, wp, inverse=inverse)
+    want = cf.transition_block_plain(x1, x2, wp, inverse=inverse)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+    a_u, b_u = (pixel_unshuffle(x).contiguous() for x in (x1, x2))
+    if inverse:
+        a_u, b_u = x1, x2
+    got = cf.fused_transition_half(a_u, b_u, wp, inverse=inverse)
+    want = cf.transition_half_plain(a_u, b_u, wp, inverse=inverse)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+
+
+def test_photo_forward_fast_on_card_matches_float32(dev):
+    """photo_forward_fast through the bf16 kernels against the float32
+    photo_forward at 64x64, global and under masks: >= 40 dB."""
+    from vstnet_tpu_torch.models import pipeline
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    fast = rf.pack_revresnet(net, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    small = torch.rand((2, 3, 8, 8), generator=g)
+    img = torch.nn.functional.interpolate(small, size=(64, 64),
+                                          mode="bilinear").permute(0, 2, 3, 1)
+    c, s = img[:1].contiguous().to(dev), img[1:].contiguous().to(dev)
+    mask = torch.zeros((1, 64, 64), dtype=torch.int32)
+    mask[:, :, 32:] = 3
+    mask = mask.to(dev)
+    for use_masks in (False, True):
+        cf.reset_launches()
+        got = pipeline.photo_forward_fast(fast, c, s, mask, mask, cfg,
+                                          max_labels=8, use_masks=use_masks)
+        assert cf.fused_coupling.mma_launches > 0
+        want = pipeline.photo_forward(net, c, s, mask, mask, max_labels=8,
+                                      use_masks=use_masks)
+        mse = float(((got - want) ** 2).mean())
+        assert 10 * np.log10(1.0 / mse) >= 40.0
+
+
+def test_interpolation_float64_retry_on_card(dev):
+    """robust_cholesky(use_double=True) retries on the card in float64: a
+    covariance whose float32 factorisation fails every jitter gets a
+    finite factor equal to the CPU's; interpolation with the retry stays
+    finite."""
+    from vstnet_tpu_torch.models import cwct
+
+    n = 10
+    hil = torch.tensor([[1.0 / (i + j + 1) for j in range(n)]
+                        for i in range(n)], dtype=torch.float32)
+    assert torch.isnan(cwct.robust_cholesky(hil.to(dev), attempts=1)).all()
+    got = cwct.robust_cholesky(hil.to(dev), attempts=1, use_double=True)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    want = cwct.robust_cholesky(hil, attempts=1, use_double=True)
+    assert _err(got.cpu(), want) <= 1e-5
+    z = torch.from_numpy(_latent(4, 8, 8, 32)).to(dev)
+    zs = torch.from_numpy(_latent(2, 8, 8, 32)).reshape(2, 1, 8, 8, 32)
+    out = cwct.interpolation(z, zs.to(dev), [0.4, 0.6], alpha_c=0.2,
+                             use_double=True)
+    assert out.shape == z.shape and torch.isfinite(out).all()
+    ref = cwct.interpolation(z.cpu(), zs, [0.4, 0.6], alpha_c=0.2,
+                             use_double=True)
+    assert _err(out.cpu(), ref) <= 1e-4 * max(float(ref.abs().max()), 1.0)
+
+
+def _latent(b, h, w, c):
+    """An NHWC latent with correlated channels, from a fixed seed."""
+    rng = np.random.default_rng(b)
+    mix = rng.standard_normal((c, c)) / np.sqrt(c)
+    x = rng.standard_normal((b, h * w, c)) @ mix.T
+    return (x + rng.standard_normal((1, 1, c))).reshape(b, h, w, c).astype(
+        np.float32)

@@ -13,13 +13,16 @@ reads its own copies of the ADE20K tables (data/*.npy).
 
     from vstnet_tpu_torch import (
         get_vstnet_encoder_model, get_vstnet_decoder_model,
-        get_photo_style_model, get_artist_style_model, get_segmenter,
+        get_segment_model, get_photo_style_model, get_artist_style_model,
+        get_segmenter, image_photo_predict,
     )
 
 Every factory and constructor builds on the current CUDA device when no
 device is given and raises when there is none; pass device="cpu" for the
-CPU (`resolve_device`). The encoder/decoder factories return `(fn, device)`
-pairs; `fn` takes and returns NHWC float tensors on `device`.
+CPU (`resolve_device`). The encoder, decoder and segment factories return
+`(fn, device)` pairs; `fn` takes and returns NHWC tensors on `device`.
+The command-line entry points are `vstnet_tpu_torch.cli.image_transfer`
+and `vstnet_tpu_torch.cli.video_transfer`.
 """
 
 __version__ = "0.1.0"
@@ -61,6 +64,15 @@ def get_vstnet_decoder_model(checkpoint=None, mode: str = "photorealistic",
     return decode, device
 
 
+def get_segment_model(checkpoint=None, device=None):
+    """(segment_fn, device). segment_fn: NHWC image in [0,1] -> (B, H, W)
+    int32 ADE20K mask with small holes removed."""
+    from vstnet_tpu_torch.models.segformer import Segmenter
+
+    device = resolve_device(device)
+    return Segmenter.load(checkpoint, device=device).segment, device
+
+
 def get_photo_style_model(*args, **kwargs):
     from vstnet_tpu_torch.models.pipeline import create_photo_style_model
 
@@ -79,3 +91,9 @@ def get_segmenter(*args, **kwargs):
     from vstnet_tpu_torch.models.segformer import Segmenter
 
     return Segmenter.load(*args, **kwargs)
+
+
+def image_photo_predict(*args, **kwargs):
+    from vstnet_tpu_torch.models.pipeline import image_photo_predict
+
+    return image_photo_predict(*args, **kwargs)

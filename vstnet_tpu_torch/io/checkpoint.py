@@ -10,7 +10,8 @@ which models/revresnet.RevResNet reproduces, so they load with a plain
 `load_state_dict`. Two loaders:
 
   * load_revresnet(path): a reference .pt/.pth file, bare or wrapped in
-    {"state_dict": ...};
+    {"state_dict": ...}; strict=False fills what a foreign file lacks
+    (tolerant_state_dict);
   * params_from_jax(tree): the JAX package's params pytree as numpy arrays
     (HWIO weights) -> the same state dict (OIHW weights).
 
@@ -32,12 +33,56 @@ import torch
 _SEQ_IDX = {"conv1": 1, "conv2": 4, "conv3": 7}
 
 
-def load_revresnet(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference-format checkpoint into a RevResNet state dict."""
+def tolerant_state_dict(sd: Dict[str, torch.Tensor],
+                        expected: Dict[str, torch.Tensor],
+                        label: str = "checkpoint") -> Dict[str, torch.Tensor]:
+    """A complete state dict from a foreign checkpoint: every expected
+    tensor that is missing from `sd`, or present with another shape, keeps
+    its `expected` value with a warning; tensors of `sd` that nothing
+    expects are ignored with one summary warning."""
+    import warnings
+
+    out = {}
+    for k, want in expected.items():
+        if k not in sd:
+            warnings.warn(f"{label}: missing tensor {k} — "
+                          "keeping initialized value")
+            out[k] = want
+        elif tuple(sd[k].shape) != tuple(want.shape):
+            warnings.warn(
+                f"{label}: tensor {k} shape {tuple(sd[k].shape)} != "
+                f"expected {tuple(want.shape)} — keeping initialized value")
+            out[k] = want
+        else:
+            out[k] = sd[k]
+    extra = sorted(set(sd) - set(expected))
+    if extra:
+        warnings.warn(f"{label}: {len(extra)} unused tensor(s) ignored "
+                      f"(e.g. {extra[:3]})")
+    return out
+
+
+def load_revresnet(path: str, strict: bool = True, cfg=None,
+                   seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Read a reference-format checkpoint into a RevResNet state dict.
+
+    strict=False loads a foreign checkpoint through tolerant_state_dict:
+    missing and misshapen tensors keep the values of a RevResNet(cfg)
+    initialised from `seed`, with warnings; cfg is then required."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
-    return dict(sd)
+    sd = dict(sd)
+    if strict:
+        return sd
+    if cfg is None:
+        raise ValueError("strict=False needs cfg= to size the expected "
+                         "weights")
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+
+    net = RevResNet(cfg, device="cpu")
+    net.init_weights(torch.Generator().manual_seed(seed))
+    return tolerant_state_dict(sd, net.state_dict(), label=path)
 
 
 def _branch(out, branch, prefix: str):

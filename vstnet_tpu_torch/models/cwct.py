@@ -1,8 +1,9 @@
 """Cholesky whitening-coloring transfer (cWCT), global and regional.
 
 Counterpart of vstnet_tpu/models/cwct.py (robust_cholesky, the global
-transfer, the precomputed style factors and their packed-latent forms, and
-the regional transfer under semantic masks at the end of the file). The
+transfer, multi-style interpolation, the precomputed style factors and
+their packed-latent forms, and the regional transfer under semantic masks
+at the end of the file). The
 whole transform is one per-sample (or per-region) product y = T x + b with
 T = Ls Lc^{-1} and b = mu_s - T mu_c.
 
@@ -38,13 +39,9 @@ def true_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def robust_cholesky(cov, eps: float = EPS_DEFAULT, attempts: int = 8):
-    """First finite Cholesky factor among escalating diagonal jitters
-    (0, eps, 2 eps, 4 eps, ...) of cov (..., C, C).
-
-    A candidate passes when cholesky_ex reports info == 0 and the factor is
-    finite. If none passes, the result is NaN and poisons the output
-    (host_check_finite detects it). All on the device: no host sync."""
+def _jitter_ladder(cov, eps: float, attempts: int):
+    """(first finite factor, whether one was found) among the Cholesky
+    factors of cov + s * eps * I for s = 0, 1, 2, 4, ..., in cov's dtype."""
     c = cov.shape[-1]
     eye = torch.eye(c, dtype=cov.dtype, device=cov.device)
     scales = torch.cat([
@@ -56,10 +53,31 @@ def robust_cholesky(cov, eps: float = EPS_DEFAULT, attempts: int = 8):
     ok = (info == 0) & torch.isfinite(ls).all(dim=-1).all(dim=-1)
     idx = torch.argmax(ok.to(torch.int32), dim=-1)
     l = torch.take_along_dim(ls, idx[..., None, None, None], dim=-3)
-    l = l.squeeze(-3)
-    bad = ~ok.any(dim=-1)
-    return torch.where(bad[..., None, None], torch.full_like(l, float("nan")),
-                       l)
+    return l.squeeze(-3), ok.any(dim=-1)
+
+
+def robust_cholesky(cov, eps: float = EPS_DEFAULT, attempts: int = 8,
+                    use_double: bool = False):
+    """First finite Cholesky factor among escalating diagonal jitters
+    (0, eps, 2 eps, 4 eps, ...) of cov (..., C, C).
+
+    A candidate passes when cholesky_ex reports info == 0 and the factor is
+    finite. If none passes, the result is NaN and poisons the output
+    (host_check_finite detects it). All on the device: no host sync.
+
+    use_double=True retries a factor that failed every jitter in float64,
+    with the same ladder (at least 8 steps), and rounds the result back to
+    cov's dtype. The JAX package runs that retry on the host, as a TPU has
+    no float64 units; the card has them, so it stays on the device."""
+    l, good = _jitter_ladder(cov, eps, attempts)
+    if use_double:
+        l64, good64 = _jitter_ladder(cov.double(), eps, max(attempts, 8))
+        l64 = l64.to(cov.dtype)
+        good64 = good64 & torch.isfinite(l64).all(dim=-1).all(dim=-1)
+        l = torch.where(good[..., None, None], l, l64)
+        good = good | good64
+    return torch.where(good[..., None, None], l,
+                       torch.full_like(l, float("nan")))
 
 
 def host_check_finite(x, what: str = "stylized output"):
@@ -88,13 +106,13 @@ def _stats(x):
     return mean, cov
 
 
-def _factors(x, eps):
+def _factors(x, eps, use_double: bool = False):
     with true_f32_matmul():
         mean, cov = _stats(x)
-        return robust_cholesky(cov, eps), mean
+        return robust_cholesky(cov, eps, use_double=use_double), mean
 
 
-def _transfer(x, ls, mu_s, eps, alpha_c=None):
+def _transfer(x, ls, mu_s, eps, alpha_c=None, use_double: bool = False):
     """Global transfer of x (B, G, C, N) against style factors (ls, mu_s),
     which may have batch 1 to broadcast over x's batch. alpha_c blends the
     content factor in (interpolation): Ls' = Ls (1-a) + Lc a, likewise the
@@ -102,7 +120,7 @@ def _transfer(x, ls, mu_s, eps, alpha_c=None):
     bsz = x.shape[0]
     with true_f32_matmul():
         mean, cov = _stats(x)
-        lc = robust_cholesky(cov, eps)
+        lc = robust_cholesky(cov, eps, use_double=use_double)
         ls = ls.float().expand(bsz, *ls.shape[1:])
         mu = mu_s.float().expand(bsz, *mu_s.shape[1:])
         if alpha_c is not None:
@@ -159,14 +177,17 @@ def interp_with_factors_packed(zp, mix_ls, mix_mu, alpha_c, c: int,
 # NHWC latent (B, H, W, C): the standard path
 # ---------------------------------------------------------------------------
 
-def style_factors(style_feat, eps: float = EPS_DEFAULT):
+def style_factors(style_feat, eps: float = EPS_DEFAULT,
+                  use_double: bool = False):
     """style_feat (B, H, W, C) -> (Ls (B, C, C), mu_s (B, C))."""
-    return _factors(_nhwc_as_gcn(style_feat), eps)
+    return _factors(_nhwc_as_gcn(style_feat), eps, use_double)
 
 
-def transfer_with_factors(content_feat, ls, mu_s, eps: float = EPS_DEFAULT):
+def transfer_with_factors(content_feat, ls, mu_s, eps: float = EPS_DEFAULT,
+                          use_double: bool = False):
     """Global transfer of an NHWC latent against precomputed factors."""
-    y = _transfer(_nhwc_as_gcn(content_feat), ls, mu_s, eps)
+    y = _transfer(_nhwc_as_gcn(content_feat), ls, mu_s, eps,
+                  use_double=use_double)
     return _gcn_as_nhwc(y, content_feat.shape)
 
 
@@ -178,12 +199,46 @@ def interp_with_factors(content_feat, mix_ls, mix_mu, alpha_c,
     return _gcn_as_nhwc(y, content_feat.shape)
 
 
-def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT):
+def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT,
+             use_double: bool = False):
     """Global cWCT of content (B, Hc, Wc, C) by style (B or 1, Hs, Ws, C),
-    computed in float32 and returned in the content's dtype."""
-    ls, mu = style_factors(style_feat.float(), eps)
-    return transfer_with_factors(content_feat.float(), ls, mu,
-                                 eps).to(content_feat.dtype)
+    computed in float32 and returned in the content's dtype. use_double
+    retries failed factorizations in float64 (robust_cholesky)."""
+    ls, mu = style_factors(style_feat.float(), eps, use_double)
+    return transfer_with_factors(content_feat.float(), ls, mu, eps,
+                                 use_double).to(content_feat.dtype)
+
+
+def mix_factors(ls, mu, alpha_s):
+    """(sum_i alpha_i Ls_i, sum_i alpha_i mu_i) over the leading (style)
+    axis of ls (S, ..., C, C) and mu (S, ..., C), in float32."""
+    a = torch.as_tensor(alpha_s, dtype=torch.float32, device=ls.device)
+    with true_f32_matmul():
+        return (torch.tensordot(a, ls.float(), dims=1),
+                torch.tensordot(a, mu.float(), dims=1))
+
+
+def interpolation(content_feat, style_feats, alpha_s, alpha_c=0.0,
+                  eps: float = EPS_DEFAULT, use_double: bool = False):
+    """Multi-style interpolation. content_feat (B, H, W, C); style_feats
+    (S, B or 1, Hs, Ws, C) or a list of S (B or 1, Hs, Ws, C) latents;
+    alpha_s (S,) weights. Per frame the style factors are mixed,
+    mix_Ls = sum_i alpha_i Ls_i and mix_mu = sum_i alpha_i mu_i, blended
+    with the content's by alpha_c (Ls' = mix_Ls (1 - a) + Lc a, likewise
+    the means) and applied as T = Ls' Lc^{-1}. Batch-1 styles broadcast
+    over the content's batch. Statistics in float32 with TF32 off; the
+    result is in the content's dtype."""
+    if isinstance(style_feats, (list, tuple)):
+        style_feats = torch.stack(list(style_feats))
+    s, bs = style_feats.shape[:2]
+    ls, mu = style_factors(style_feats.reshape(s * bs,
+                                               *style_feats.shape[2:])
+                           .float(), eps, use_double)
+    mix_ls, mix_mu = mix_factors(ls.reshape(s, bs, *ls.shape[1:]),
+                                 mu.reshape(s, bs, -1), alpha_s)
+    y = _transfer(_nhwc_as_gcn(content_feat.float()), mix_ls, mix_mu, eps,
+                  alpha_c=alpha_c, use_double=use_double)
+    return _gcn_as_nhwc(y, content_feat.shape).to(content_feat.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,17 @@
-"""End-to-end stylization: global, and regional under semantic masks.
+"""End-to-end stylization: global, interpolated, and regional under
+semantic masks.
 
-Counterpart of vstnet_tpu/models/pipeline.py's research tier and video
-tier: `stylize` (standard float32 path), `stylize_fast` and
-`stylize_interp_fast` (the fused bf16 packed-latent path), `stylize_masked`
-and `stylize_masked_fast` (regional cWCT under given masks),
-`make_fused_video_fn` (the global video program),
-`make_masked_fused_video_fn` with `prepare_masked_style` (the masked,
-auto-seg video program and its per-video set-up) and `StyleModel`. Inputs
-are NHWC float images in [0,1] whose height and width are multiples of 4.
+Counterpart of vstnet_tpu/models/pipeline.py. Research tier: `stylize`
+(standard float32 path), `stylize_interp` (multi-style interpolation),
+`stylize_fast`, `stylize_interp_fast` and `stylize_interp_multi_fast` (the
+fused packed-latent path), `stylize_masked` and `stylize_masked_fast`
+(regional cWCT under given masks). Video tier: `make_fused_video_fn` (the
+global video program), `make_masked_fused_video_fn` with
+`prepare_masked_style` (the masked, auto-seg video program and its
+per-video set-up). Package tier: `photo_forward` and `photo_forward_fast`
+(the Lab luminance blend), `StyleModel.photo_pipeline` and
+`image_photo_predict`. Research-tier inputs are NHWC float images in [0,1]
+whose height and width are multiples of 4; the package tier pads.
 """
 
 from __future__ import annotations
@@ -28,7 +32,12 @@ from vstnet_tpu_torch.models.remapping import (
 )
 from vstnet_tpu_torch.models.revresnet import RevResNet
 from vstnet_tpu_torch.models.segformer import Segmenter, segment_mask
-from vstnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from vstnet_tpu_torch.ops.color import lab2rgb, rgb2lab
+from vstnet_tpu_torch.ops.resize import (
+    pad_to_multiple,
+    resize_bilinear,
+    resize_nearest,
+)
 
 
 @torch.no_grad()
@@ -41,12 +50,14 @@ def stylize(net: RevResNet, content, style):
 
 
 @torch.no_grad()
-def stylize_interp(net: RevResNet, content, style, alpha_c):
-    """Single-style interpolation on the standard path: the style factors
-    blended with the content's by alpha_c."""
+def stylize_interp(net: RevResNet, content, styles, alpha_s, alpha_c=0.0):
+    """Multi-style interpolation on the standard path: styles (S, B, H, W,
+    3) stacked at one shape, alpha_s (S,) weights, alpha_c the content
+    blend (cwct.interpolation)."""
     z_c = net.encode(content)
-    ls, mu = cwct.style_factors(net.encode(style))
-    return net.decode(cwct.interp_with_factors(z_c, ls, mu, alpha_c))
+    z_styles = torch.stack([net.encode(s) for s in styles])
+    return net.decode(cwct.interpolation(z_c, z_styles, alpha_s,
+                                         alpha_c=alpha_c))
 
 
 def _fast_pair(fast_params, content, style, cfg, alpha_c=None):
@@ -77,6 +88,25 @@ def stylize_interp_fast(fast_params, content, style, cfg: RevResNetConfig,
                         alpha_c):
     """stylize_interp on the fused packed-latent path."""
     return _fast_pair(fast_params, content, style, cfg, alpha_c=alpha_c)
+
+
+@torch.no_grad()
+def stylize_interp_multi_fast(fast_params, content, styles, alpha_s,
+                              cfg: RevResNetConfig, alpha_c):
+    """Multi-style interpolation on the fused packed-latent path: styles
+    (S, H, W, 3) encoded as one batch, their packed factors mixed by
+    alpha_s (S,) weights (cwct.mix_factors), then applied with the alpha_c
+    content blend. Computes in the packed weights' dtype; returns
+    float32."""
+    dt = fast_params["dtype"]
+    c_lat = cfg.latent_channels
+    zp_c = rf.encode_fast(fast_params, content.to(dt), cfg, packed_latent=True)
+    zp_s = rf.encode_fast(fast_params, styles.to(dt), cfg, packed_latent=True)
+    ls, mu = cwct.mix_factors(*cwct.style_factors_packed(zp_s, c_lat),
+                              alpha_s)
+    z_cs = cwct.interp_with_factors_packed(zp_c, ls[None], mu[None], alpha_c,
+                                           c_lat)
+    return rf.decode_fast(fast_params, z_cs, cfg, packed_latent=True).float()
 
 
 def _mask_to_latent(mask, z_shape):
@@ -204,6 +234,72 @@ def make_masked_fused_video_fn(cfg: RevResNetConfig, min_ratio: float = 0.02,
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Package tier: the photo pipeline with the Lab luminance blend
+# ---------------------------------------------------------------------------
+
+def _lab_blend(content_lab, output):
+    """The content's Lab luminance with the output's ab, back to RGB."""
+    out_lab = rgb2lab(output.float().clamp(0.0, 1.0))
+    return lab2rgb(torch.cat([content_lab[..., 0:1], out_lab[..., 1:3]],
+                             dim=-1))
+
+
+def _encode_pair(encode, c_image, s_image):
+    """encode(content), encode(style): one batched call when the shapes
+    match."""
+    if c_image.shape == s_image.shape:
+        z = encode(torch.cat([c_image, s_image]))
+        return z[:c_image.shape[0]], z[c_image.shape[0]:]
+    return encode(c_image), encode(s_image)
+
+
+@torch.no_grad()
+def photo_forward(net: RevResNet, c_image, s_image, cmask, smask,
+                  max_labels: int = 32, use_masks: bool = True):
+    """The package tier on inputs padded to a multiple of 4: encode both
+    images, the regional cWCT under the masks ((B, H, W) int labels at
+    image resolution) or the global one, decode, clamp, and keep the
+    content's Lab luminance under the stylized ab. float32 standard path;
+    returns RGB in [0, 1]."""
+    content_lab = rgb2lab(c_image)
+    z_c, z_s = _encode_pair(net.encode, c_image, s_image)
+    if use_masks:
+        z_cs = cwct.transfer_masked(
+            z_c, z_s, _mask_to_latent(cmask, z_c.shape),
+            _mask_to_latent(smask, z_s.shape), max_labels=max_labels)
+    else:
+        z_cs = cwct.transfer(z_c, z_s)
+    return _lab_blend(content_lab, net.decode(z_cs))
+
+
+@torch.no_grad()
+def photo_forward_fast(fast_params, c_image, s_image, cmask, smask,
+                       cfg: RevResNetConfig, max_labels: int = 32,
+                       use_masks: bool = True):
+    """photo_forward on the fused path: encode and decode through the
+    kernels in the packed weights' dtype, the cWCT statistics and Cholesky
+    in float32; the global route on the packed latent."""
+    dt = fast_params["dtype"]
+    content_lab = rgb2lab(c_image)
+    cb, sb = c_image.to(dt), s_image.to(dt)
+    if use_masks:
+        z_c, z_s = _encode_pair(
+            lambda x: rf.encode_fast(fast_params, x, cfg), cb, sb)
+        z_cs = cwct.transfer_masked(
+            z_c, z_s, _mask_to_latent(cmask, z_c.shape),
+            _mask_to_latent(smask, z_s.shape), max_labels=max_labels)
+        out = rf.decode_fast(fast_params, z_cs.to(dt), cfg)
+    else:
+        c_lat = cfg.latent_channels
+        zp_s = rf.encode_fast(fast_params, sb, cfg, packed_latent=True)
+        zp_c = rf.encode_fast(fast_params, cb, cfg, packed_latent=True)
+        ls, mu_s = cwct.style_factors_packed(zp_s, c_lat)
+        z_cs = cwct.transfer_with_factors_packed(zp_c, ls, mu_s, c_lat)
+        out = rf.decode_fast(fast_params, z_cs, cfg, packed_latent=True)
+    return _lab_blend(content_lab, out)
+
+
 def _config(mode: str) -> RevResNetConfig:
     return PHOTO_CONFIG if mode.lower() == "photorealistic" else ARTISTIC_CONFIG
 
@@ -219,6 +315,8 @@ class StyleModel:
     segmenter: Optional[Segmenter] = None
     _fast_params: Optional[dict] = dataclasses.field(default=None,
                                                      repr=False)
+
+    MAX_TIMES = 4
 
     @property
     def fast_params(self):
@@ -237,10 +335,13 @@ class StyleModel:
 
     @classmethod
     def from_checkpoint(cls, path: str, mode: str = "photorealistic",
-                        device=None, segmenter: Optional[Segmenter] = None):
+                        device=None, segmenter: Optional[Segmenter] = None,
+                        strict: bool = True):
+        """strict=False loads a foreign checkpoint: missing and misshapen
+        tensors keep seeded initial values, with warnings."""
         cfg = _config(mode)
         net = RevResNet(cfg, device=device)
-        net.load_state_dict(load_revresnet(path))
+        net.load_state_dict(load_revresnet(path, strict=strict, cfg=cfg))
         return cls(cfg=cfg, net=net, mode=mode, segmenter=segmenter)
 
     def stylize(self, content, style, cmask=None, smask=None, alpha_c=None,
@@ -253,7 +354,8 @@ class StyleModel:
             if fast:
                 return stylize_interp_fast(self.fast_params, content, style,
                                            self.cfg, alpha_c)
-            return stylize_interp(self.net, content, style, alpha_c)
+            return stylize_interp(self.net, content, style[None], [1.0],
+                                  alpha_c=float(alpha_c))
         if cmask is not None and smask is not None:
             k = cwct.label_capacity(cmask)
             if fast:
@@ -265,6 +367,49 @@ class StyleModel:
         if fast:
             return stylize_fast(self.fast_params, content, style, self.cfg)
         return stylize(self.net, content, style)
+
+    def stylize_multi(self, content, styles, alpha_s, alpha_c=None,
+                      fast: bool = False):
+        """Multi-style interpolation, global transfer only: styles (S, H,
+        W, 3) stacked at one shape, alpha_s (S,) weights (the caller
+        normalises them), an optional alpha_c content blend. Returns the
+        raw decoder output in float32."""
+        a_c = 0.0 if alpha_c is None else float(alpha_c)
+        if fast:
+            return stylize_interp_multi_fast(self.fast_params, content,
+                                             styles, alpha_s, self.cfg, a_c)
+        return stylize_interp(self.net, content, styles[:, None], alpha_s,
+                              alpha_c=a_c)
+
+    def photo_pipeline(self, c_image, s_image, cmask=None, smask=None,
+                       fast: bool = False):
+        """The package pipeline on unpadded NHWC images: replicate-pad to
+        a multiple of MAX_TIMES, segment both when no masks are given and
+        a segmenter is attached, stylize with the Lab blend
+        (photo_forward, or photo_forward_fast with fast=True), resize back
+        to the content's size."""
+        b, h, w, _ = c_image.shape
+        c_pad = pad_to_multiple(c_image, self.MAX_TIMES)
+        s_pad = pad_to_multiple(s_image, self.MAX_TIMES)
+        if cmask is None and self.segmenter is not None:
+            if c_pad.shape == s_pad.shape:
+                masks = self.segmenter.segment(torch.cat([c_pad, s_pad]))
+                cmask, smask = masks[:b], masks[b:]
+            else:
+                cmask = self.segmenter.segment(c_pad)
+                smask = self.segmenter.segment(s_pad)
+        use_masks = cmask is not None
+        k = cwct.label_capacity(cmask) if use_masks else 32
+        if fast:
+            out = photo_forward_fast(self.fast_params, c_pad, s_pad, cmask,
+                                     smask, self.cfg, max_labels=k,
+                                     use_masks=use_masks)
+        else:
+            out = photo_forward(self.net, c_pad, s_pad, cmask, smask,
+                                max_labels=k, use_masks=use_masks)
+        if out.shape[1] != h or out.shape[2] != w:
+            out = resize_bilinear(out, h, w)
+        return out
 
 
 def _create(mode, checkpoint, device, seed, segmenter):
@@ -285,3 +430,42 @@ def create_artist_style_model(checkpoint: Optional[str] = None,
                               device=None, seed: int = 0,
                               segmenter: Optional[Segmenter] = None):
     return _create("artistic", checkpoint, device, seed, segmenter)
+
+
+def image_photo_predict(content_files, style_file, output_dir: str,
+                        checkpoint: Optional[str] = None, device=None):
+    """Write a [content | style | output] triptych PNG per content image
+    through the photo pipeline; content_files is a glob pattern or a list
+    of paths. Returns the written paths. device=None is the CUDA card."""
+    import glob
+    import os
+
+    from vstnet_tpu_torch.device import resolve_device
+    from vstnet_tpu_torch.io.image import (
+        device_put_image,
+        load_image,
+        save_image,
+    )
+
+    if isinstance(content_files, str):
+        pattern = content_files
+        content_files = sorted(glob.glob(pattern))
+        if not content_files:
+            raise FileNotFoundError(f"no content images match {pattern!r}")
+    device = resolve_device(device)
+    model = create_photo_style_model(checkpoint, device=device)
+    os.makedirs(output_dir, exist_ok=True)
+    style = device_put_image(load_image(style_file, as_uint8=True), device)
+    results = []
+    for cf in content_files:
+        content = device_put_image(load_image(cf, as_uint8=True), device)
+        sh, sw = content.shape[1:3]
+        s = style
+        if s.shape[1:3] != (sh, sw):
+            s = resize_bilinear(s, sh, sw)
+        out = cwct.host_check_finite(model.photo_pipeline(content, s))
+        dst = os.path.join(
+            output_dir, os.path.splitext(os.path.basename(cf))[0] + ".png")
+        save_image(torch.cat([content[0], s[0], out[0]], dim=1), dst)
+        results.append(dst)
+    return results

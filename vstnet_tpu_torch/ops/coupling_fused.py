@@ -34,6 +34,8 @@ and `csrc/transition_mma.cu`.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from vstnet_tpu_torch.ops import _build
@@ -257,16 +259,36 @@ def coupling_block_plain(x1, x2, w, inverse: bool = False):
     return y.to(x1.dtype)
 
 
+@contextlib.contextmanager
+def _kernel_sum_order(x):
+    """cuDNN off for the block when x is a float32 CUDA tensor.
+
+    The float32 transition kernel sums every output over (ci, ky, kx), one
+    fmaf each, in that order. So does PyTorch's own im2col + GEMM conv, at
+    every frame size of the video paths. cuDNN picks its algorithm by
+    shape: at the 640x360 T2 shape it takes an FFT for conv2, whose sums
+    differ in the last bit. With cuDNN off, the float32 plain version
+    equals the kernel bit for bit (scripts/torch_k2k3_f32_order.py)."""
+    saved = torch.backends.cudnn.enabled
+    if x.is_cuda and x.dtype == torch.float32:
+        torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
 def transition_block_plain(a, b, w, inverse: bool = False):
     """Forward: (a, b) = (x1, x2) full-res -> (u(x2), F(x2) + u(x1)).
     Inverse: (a, b) = (y2, y1) half-res -> (s(y2 - F(s(y1))), s(y1)).
-    u/s are pixel_unshuffle/pixel_shuffle; F's conv1 has stride 2."""
+    u/s are pixel_unshuffle/pixel_shuffle; F's conv1 has stride 2. float32
+    on a CUDA tensor sums in the kernel's order (_kernel_sum_order)."""
+    x2 = pixel_shuffle(b) if inverse else b
+    with _kernel_sum_order(x2):
+        fx = residual_branch_nchw(x2, w["w"], 2)
     if not inverse:
-        fx = residual_branch_nchw(b, w["w"], 2)
         return (pixel_unshuffle(b),
                 (fx + pixel_unshuffle(a).float()).to(a.dtype))
-    x2 = pixel_shuffle(b)
-    fx = residual_branch_nchw(x2, w["w"], 2)
     return pixel_shuffle((a.float() - fx).to(a.dtype)), x2
 
 
@@ -276,7 +298,9 @@ def transition_half_plain(a_u, b_u, w, inverse: bool = False):
     (y2, y1) -> (y2 - F(s(y1)), y1), still unshuffled. The same sums as
     transition_block_plain: transition_block_plain(x1, x2) ==
     transition_half_plain(u(x1), u(x2)) exactly."""
-    fx = residual_branch_nchw(pixel_shuffle(b_u), w["w"], 2)
+    x2 = pixel_shuffle(b_u)
+    with _kernel_sum_order(x2):
+        fx = residual_branch_nchw(x2, w["w"], 2)
     if not inverse:
         return b_u, (fx + a_u.float()).to(a_u.dtype)
     return (a_u.float() - fx).to(a_u.dtype), b_u
