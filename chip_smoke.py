@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-Drives the port's two video paths (vstnet_tpu_torch) and its two CLIs
-through the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
-SegFormer-B4 on 512x512 frames in bf16, with random weights made from a
-seed. Phases, in order; any failure raises and the process exits non-zero:
+Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
+ultra-resolution tiler and the HTTP style service through the entry points
+a user calls, at the full width and depth of PHOTO_CONFIG and SegFormer-B4
+(512x512 frames in bf16, 1280x720 clips, 3840x2160 images, 1280x720 and
+960x540 requests), with random weights made from a seed. Phases, in
+order; any failure raises and the process exits non-zero:
 
   1. device   a CUDA card is present; print its nvidia-smi name and power
               limit.
@@ -51,11 +53,12 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
               with CUDA events.
-  7. cli      (run after phase 5, before the timings) the command-line
-              entry points as a user runs them, on synthetic files: the
-              video CLI on a 16-frame 1280x720 MJPEG clip, --batch 8, the
-              default --max_size 1280, in bf16 global (twice), --alpha_c
-              0.5, --auto_seg --seg_size -1 and f32, then on an 8-frame
+  7. cli      (run after phase 5; phases 7-9 before the timings) the
+              command-line entry points as a user runs them, on synthetic
+              files: the video CLI on a 16-frame 1280x720 MJPEG clip,
+              --batch 8, the default --max_size 1280, in bf16 global
+              (twice), --alpha_c 0.5, --auto_seg --seg_size -1 and f32,
+              then on an 8-frame
               640x360 clip in bf16 and f32; every bf16 batch launches
               coupling_mma 60 and the stride-2 blocks' kernels (auto-seg:
               and one segment call's attention and dwconv_gelu), its input
@@ -68,6 +71,27 @@ seed. Phases, in order; any failure raises and the process exits non-zero:
               A B --alpha_s 0.3 0.7), each --fast output >= 40 dB against
               float32 (auto-seg: on the --fast run's saved masks); then
               photo_pipeline(fast=True) against photo_pipeline().
+  8. ultra    (after phase 7) the tiled path on a smooth 3840x2160 content
+              with a 1024x576 style: ultra.stylize_tiled in float32 at the
+              exact overlap (the receptive field, rounded up to a multiple
+              of 4) against whole-image StyleModel.stylize (> 55 dB), the
+              fused route on the same grid against it (>= 40 dB), the
+              default overlap 128 against the whole image (printed); then
+              the image CLI on the 4K PNG in --fast global, --auto_seg,
+              --styles A B --alpha_s 0.3 0.7, --alpha_c 0.5 and their
+              float32 routes (auto-seg: float32 on the --fast run's saved
+              masks), each --fast output >= 40 dB against float32, every
+              tile batch's launches checked (pass 1 coupling_mma 30 and
+              transition_mma 2, pass 2 60 and 4; none on float32), with
+              main()'s wall seconds beside pass 1's and pass 2's device ms.
+  9. serve    StyleService(fast=True) behind serve(port=0) in this
+              process: one style registered, 16 concurrent requests at
+              1280x720 and 8 at 960x540, every reply 200 and equal bit for
+              bit to the same content sent alone, each batch's launches
+              (coupling_mma 60 and the stride-2 blocks' kernels),
+              requests/s, requests a batch, p50/p95 latency; a float32
+              service on four of the contents >= 40 dB against the fused
+              replies.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -167,6 +191,15 @@ K5_SHAPES = [("s1", 256, 128, 128, 3), ("s2", 512, 64, 64, 8),
 K5_BIG = [("1024 s1", 256, 256, 256), ("1024 s2", 512, 128, 128),
           ("1024 s3", 1280, 64, 64), ("1024 s4", 2048, 32, 32)]
 K5_RAGGED = ("ragged", 200, 23, 17)
+# the tiler's batch of 4 tiles at 1024x1024 (K1 at its three widths, K2 at
+# both stride-2 blocks) and the service's 960x576 bucket at batch 8 (K3 at
+# both: half-res widths 480 and 240); timed in phase 6 for the record, not
+# part of the kernels line's sums
+TILE_B = 4
+TILE_K1 = [("tile s1", 16, 1024, 1024), ("tile s2", 64, 512, 512),
+           ("tile s3", 256, 256, 256)]
+TILE_K2 = [("tile T1", 16, 1024, 1024), ("tile T2", 64, 512, 512)]
+BUCKET_K3 = [("bucket T1", 16, 576, 960), ("bucket T2", 64, 288, 480)]
 
 # "coupling" is the CUDA-core kernel (float32) and "coupling_mma" the
 # tensor-core kernels (bf16 at C=16, C=64 and C=256) of the one K1 wrapper,
@@ -951,6 +984,35 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
             print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: "
                   f"forward K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; "
                   f"inverse K2 {i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
+    # the tiler's and the service's shapes, bf16
+    for name, c, h, w in TILE_K1:
+        wp = cf.pack_coupling_weights(
+            _rand_branch(gen, c, c // 4, c, device), bf)
+        x1, x2 = (torch.randn((TILE_B, c, h, w), generator=gen).to(device, bf)
+                  for _ in range(2))
+        tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
+                            lambda: cf.coupling_block_plain(x1, x2, wp),
+                            iters=5)
+        _line("coupling_mma", name, f"C={c} {h}x{w} B={TILE_B}", tk, tp,
+              bound_coupling(TILE_B, c, h, w))
+    for (name, c, h, w), b, half in ([(k, TILE_B, False) for k in TILE_K2]
+                                     + [(k, batch, True) for k in BUCKET_K3]):
+        wp = cf.pack_transition_weights(
+            _rand_branch(gen, c, c, 4 * c, device), bf)
+        xa, xb = (torch.randn((b, c, h, w), generator=gen).to(device, bf)
+                  for _ in range(2))
+        kernel, plain, key = (cf.fused_transition, cf.transition_block_plain,
+                              "transition_mma")
+        if half:
+            xa = pixel_unshuffle(xa).contiguous()
+            xb = pixel_unshuffle(xb).contiguous()
+            kernel, plain, key = (cf.fused_transition_half,
+                                  cf.transition_half_plain,
+                                  "transition_half_mma")
+        tk, tp = _time_pair(lambda: kernel(xa, xb, wp),
+                            lambda: plain(xa, xb, wp), iters=5)
+        _line(key, name, f"C={c} {h}x{w} (full-res) B={b}", tk, tp,
+              bound_transition(b, c, h, w, 3 if half else 4))
     for name, g, n, m, count in K4_SHAPES + [K4_UNROUTED + (0,)]:
         g = g * batch if name in ("512 s1", "256 s1") else g
         q, k, v = (torch.randn(s, generator=gen).to(device, bf)
@@ -1526,6 +1588,496 @@ def phase_cli(ops, device, gen, total, smi):
     tmp.cleanup()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: ultra-resolution tiling
+# ---------------------------------------------------------------------------
+
+# a 4K content (H, W) and its style; the tiler's defaults (tile 1024,
+# overlap 128); the exact overlap is the receptive field (234 px for
+# PHOTO_CONFIG) rounded up to a multiple of 4
+ULTRA_HW = (2160, 3840)
+ULTRA_STYLE = (576, 1024)
+ULTRA_TILE = 1024
+ULTRA_OVERLAP = 128
+ULTRA_GATE = 55.0
+# launches of one batch of 4 tiles at 1024x1024 on the fused path: pass 1
+# encodes (30 coupling blocks, 2 stride-2 blocks on the full-res entry:
+# half-res widths 512 and 256), pass 2 encodes and decodes
+ULTRA_PER_CHUNK = {1: {"coupling_mma": 30, "transition_mma": 2},
+                   2: {"coupling_mma": 60, "transition_mma": 4}}
+# launches of one style encode at 1024x576 (half-res widths 512 and 256)
+ULTRA_STYLE_ENCODE = {"coupling_mma": 30, "transition_mma": 2}
+# one bf16 segment call at 1024x576 (the 4K content capped at 1024 a side,
+# and the style): stage 1 has 36864 queries and stage 2 9216, both at or
+# above MIN_Q, so 3 + 8 attention launches; 41 MixFFN blocks
+ULTRA_SEG_CALL = {"attention": 11, "dwconv_gelu": 41}
+
+
+class _UltraProbe:
+    """Within the block, every tile batch that models/ultra.py runs is kept
+    with its pass (1: moments, 2: stylize and blend), its launches and its
+    device time (CUDA events around the batch)."""
+
+    PASSES = {"_moments_chunk": 1, "_moments_chunk_masked": 1,
+              "_stylize_chunk": 2, "_stylize_chunk_masked": 2}
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.calls = []
+
+    def __enter__(self):
+        from vstnet_tpu_torch.models import ultra
+
+        self.ultra = ultra
+        self.saved = {n: getattr(ultra, n) for n in self.PASSES}
+        for name, fn in self.saved.items():
+            setattr(ultra, name, self._wrap(fn, self.PASSES[name]))
+        return self
+
+    def _wrap(self, fn, pass_no):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = self.ops.launch_counts()
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            after = self.ops.launch_counts()
+            self.calls.append({
+                "pass": pass_no, "events": (start, end),
+                "launches": {k: v - before[k] for k, v in after.items()
+                             if v != before[k]}})
+            return out
+        return run
+
+    def device_ms(self, pass_no):
+        torch.cuda.synchronize()
+        return sum(c["events"][0].elapsed_time(c["events"][1])
+                   for c in self.calls if c["pass"] == pass_no)
+
+    def check(self, what, fast):
+        """Each tile batch made the launches of its pass (none on the
+        float32 route); returns the batch count of each pass."""
+        n = {p: sum(c["pass"] == p for c in self.calls) for p in (1, 2)}
+        if n[1] != n[2] or not n[1]:
+            raise AssertionError(f"ultra {what}: tile batches {n}")
+        for c in self.calls:
+            want = ULTRA_PER_CHUNK[c["pass"]] if fast else {}
+            if c["launches"] != want:
+                raise AssertionError(f"ultra {what}: a pass-{c['pass']} "
+                                     f"batch launched {c['launches']}, "
+                                     f"want {want}")
+        return n
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ultra, name, fn)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ultra_breakdown(root, out, device):
+    """Where an ultra CLI run's wall time goes besides the device, each
+    part alone: the 4K PNG load, the 4K PNG save (host, one thread) and
+    the model's set-up on the card."""
+    from vstnet_tpu_torch.io.image import load_image, save_image
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    _, t_load = _timed(lambda: load_image(f"{root}/content.png",
+                                          max(ULTRA_HW), 4, as_uint8=True))
+    x = torch.from_numpy(out).to(device)[None].float() / 255.0
+    _, t_save = _timed(lambda: save_image(x, f"{root}/save_probe.png"))
+    _, t_init = _timed(lambda: StyleModel.random_init(device=device))
+    print(f"ultra CLI breakdown, each part alone: content PNG load "
+          f"{t_load:.2f} s, output PNG save {t_save:.2f} s (host, one "
+          f"thread), StyleModel.random_init {t_init:.2f} s")
+
+
+def _check_tile_latents(model, content, grid):
+    """The fused kernels give a pixel the same bits wherever a tile's
+    origin puts it: the tiles' owned latent pixels at the exact overlap,
+    put together, equal the whole image's fused latent bit for bit (the
+    whole image's T2 takes K3 where a tile's takes K2; both give the same
+    bits, phase 3)."""
+    from vstnet_tpu_torch.models import revresnet_fast as rf
+    from vstnet_tpu_torch.models import ultra
+
+    fp, cfg, sc = model.fast_params, model.cfg, grid.sc
+    z_whole = rf.encode_fast(fp, content.to(fp["dtype"]), cfg)
+    z_tiles = torch.full_like(z_whole, float("nan"))
+    items = list(grid.tiles())
+    for c0 in range(0, len(items), ultra.TILE_BATCH):
+        chunk = items[c0:c0 + ultra.TILE_BATCH]
+        tiles = ultra._slice_tiles(content, [it[1] for it in chunk],
+                                   [it[3] for it in chunk], grid.th, grid.tw)
+        z = rf.encode_fast(fp, tiles.to(fp["dtype"]), cfg)
+        for i, it in enumerate(chunk):
+            oy0, oy1, ox0, ox1 = grid.own_bounds(*it)
+            y0, x0 = it[1] // sc, it[3] // sc
+            z_tiles[0, y0 + oy0:y0 + oy1, x0 + ox0:x0 + ox1] = \
+                z[i, oy0:oy1, ox0:ox1]
+    same = torch.equal(z_tiles, z_whole)
+    print(f"gate ultra fused latent: the {len(items)} tiles' owned pixels "
+          f"equal the whole image's latent bit for bit: {same} (max abs "
+          f"err {_max_err(z_tiles, z_whole):.3e})")
+    if not same:
+        raise AssertionError("tiled fused latent differs from the whole "
+                             "image's")
+
+
+def phase_ultra(ops, model, device, gen, total, smi):
+    """The tiled path at 3840x2160, full PHOTO_CONFIG: the library entry
+    (float32 at the exact overlap against the whole image, fused against
+    float32 on the same grid, the default overlap against the whole image),
+    then the image CLI on a 4K PNG in five routes."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from vstnet_tpu_torch.cli import image_transfer
+    from vstnet_tpu_torch.models import ultra
+
+    cfg = model.cfg
+    exact_ov = ultra.receptive_field(cfg) + (-ultra.receptive_field(cfg)) % 4
+    content = _frames(gen, 1, ULTRA_HW, device)
+    style = _frames(gen, 1, ULTRA_STYLE, device)
+    h, w = ULTRA_HW
+
+    whole, t_whole = _timed(lambda: model.stylize(content, style))
+    whole = whole.clamp(0, 1)
+    exact, t_exact = _timed(lambda: ultra.stylize_tiled(
+        model.net, content, style, cfg, tile=ULTRA_TILE,
+        overlap=exact_ov))
+    exact = exact.clamp(0, 1)
+    p = _psnr(exact, whole)
+    grid = ultra._TileGrid(h, w, cfg, ULTRA_TILE, exact_ov)
+    print(f"gate ultra float32 tiled (overlap {exact_ov}, "
+          f"{len(grid.ys)}x{len(grid.xs)} tiles) vs whole image "
+          f"{w}x{h}: PSNR {p:.2f} dB (> {ULTRA_GATE}); max abs err "
+          f"{_max_err(exact, whole):.3e}; {t_exact:.2f} s tiled, "
+          f"{t_whole:.2f} s whole")
+    if not p > ULTRA_GATE:
+        raise AssertionError(f"ultra exact PSNR {p}")
+    _check_tile_latents(model, content, grid)
+
+    with _UltraProbe(ops) as probe:
+        ops.reset_launch_counts()
+        fast, t_fast = _timed(lambda: ultra.stylize_tiled(
+            model.net, content, style, cfg, tile=ULTRA_TILE,
+            overlap=exact_ov, fast_params=model.fast_params))
+        counts = ops.launch_counts()
+    _add(total, counts)
+    n = probe.check("library fused", True)
+    p = _psnr(fast.clamp(0, 1), exact)
+    print(f"gate ultra fused tiled vs float32 tiled (overlap "
+          f"{exact_ov}): PSNR {p:.2f} dB (>= {PSNR_GATE}); {n[1]} tile "
+          f"batches a pass, launches {counts}; {t_fast:.2f} s, pass 1 "
+          f"{probe.device_ms(1):.1f} ms and pass 2 {probe.device_ms(2):.1f} "
+          f"ms on the device")
+    if not p >= PSNR_GATE:
+        raise AssertionError(f"ultra fused PSNR {p}")
+    del fast, exact
+
+    default = ultra.stylize_tiled(model.net, content, style, cfg,
+                                  tile=ULTRA_TILE, overlap=ULTRA_OVERLAP)
+    print(f"ultra float32 tiled at the default overlap {ULTRA_OVERLAP} vs "
+          f"whole image: PSNR {_psnr(default.clamp(0, 1), whole):.2f} dB "
+          f"(not gated: seams blended inside the receptive field)")
+    del default, whole
+
+    tmp = tempfile.TemporaryDirectory(prefix="vstnet_ultra_")
+    root = tmp.name
+    for name, img in (("content", content), ("style", style),
+                      ("style2", _frames(gen, 1, ULTRA_STYLE, device))):
+        Image.fromarray((img[0] * 255).round().to(torch.uint8).cpu()
+                        .numpy()).save(f"{root}/{name}.png")
+    del content
+
+    def image(tag, *flags, fast, seg_calls=0, styles=1):
+        out_dir = f"{root}/{tag.replace(' ', '_')}"
+        argv = ["--content", f"{root}/content.png", "--out_dir", out_dir,
+                "--max_size", str(max(ULTRA_HW)), *flags]
+        if "--styles" not in flags:
+            argv += ["--style", f"{root}/style.png"]
+        with _UltraProbe(ops) as probe:
+            ops.reset_launch_counts()
+            path, out, wall = _run_cli(image_transfer.main, argv)
+            counts = ops.launch_counts()
+        _add(total, counts)
+        if f"ultra-res: tiling {h}x{w}" not in out:
+            raise AssertionError(f"ultra CLI {tag}: no tiling line")
+        n = probe.check(f"CLI {tag}", fast)
+        want = {}
+        if fast:
+            for k in ULTRA_STYLE_ENCODE:
+                want[k] = (n[1] * (ULTRA_PER_CHUNK[1][k]
+                                   + ULTRA_PER_CHUNK[2][k])
+                           + styles * ULTRA_STYLE_ENCODE[k])
+            for k, v in ULTRA_SEG_CALL.items():
+                want[k] = seg_calls * v
+        got_counts = {k: v for k, v in counts.items() if v}
+        if got_counts != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"ultra CLI {tag}: launches {counts}, "
+                                 f"want {want}")
+        got = np.asarray(Image.open(path))
+        if got.shape != ULTRA_HW + (3,):
+            raise AssertionError(f"ultra CLI {tag}: {got.shape}")
+        print(f"ultra CLI {tag} {w}x{h}: main() {wall:.2f} s with set-up; "
+              f"pass 1 {probe.device_ms(1):.1f} ms, pass 2 "
+              f"{probe.device_ms(2):.1f} ms on the device ({n[1]} tile "
+              f"batches a pass); launches {counts}")
+        return got, out_dir, wall
+
+    styles = ("--styles", f"{root}/style.png", f"{root}/style2.png",
+              "--alpha_s", "0.3", "0.7")
+    img = {}
+    for tag, flags, kw in (
+            ("fast global", ("--fast",), {}),
+            ("fast auto_seg", ("--fast", "--auto_seg"), {"seg_calls": 2}),
+            ("fast styles", ("--fast",) + styles, {"styles": 2}),
+            ("fast alpha_c", ("--fast", "--alpha_c", "0.5"), {}),
+            ("f32 global", (), {}),
+            ("f32 styles", styles, {}),
+            ("f32 alpha_c", ("--alpha_c", "0.5"), {})):
+        img[tag] = image(tag, *flags, fast=tag.startswith("fast"), **kw)
+    seg_dir = f"{img['fast auto_seg'][1]}/segmentation"
+    img["f32 on the fast masks"] = image(
+        "f32 on the fast masks", "--content_seg",
+        f"{seg_dir}/content_seg_label.png", "--style_seg",
+        f"{seg_dir}/style_seg_label.png", fast=False)
+    for fast_tag, ref_tag in (("fast global", "f32 global"),
+                              ("fast auto_seg", "f32 on the fast masks"),
+                              ("fast styles", "f32 styles"),
+                              ("fast alpha_c", "f32 alpha_c")):
+        p = _u8_psnr(img[fast_tag][0], img[ref_tag][0])
+        print(f"gate ultra CLI {fast_tag} vs {ref_tag}: PSNR {p:.2f} dB "
+              f"(>= {PSNR_GATE})")
+        if not p >= PSNR_GATE:
+            raise AssertionError(f"ultra CLI {fast_tag} PSNR {p}")
+    print(f"ultra CLI {w}x{h} main() wall seconds on {smi}: "
+          + ", ".join(f"{k} {v[2]:.2f}" for k, v in img.items()))
+    _ultra_breakdown(root, img["fast global"][0], device)
+    if not os.path.isdir(seg_dir):
+        raise AssertionError("no segmentation saved")
+    tmp.cleanup()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the HTTP style service
+# ---------------------------------------------------------------------------
+
+# (requests, H, W) of the concurrent burst: 1280x720 pads to the 1280x768
+# bucket (half-res widths 640 and 320: K2 then K3), 960x540 to 960x576
+# (480 and 240: K3 at both)
+SERVE_BURST = [(16, 720, 1280), (8, 540, 960)]
+SERVE_PER_BATCH = {
+    (768, 1280): {"coupling_mma": 60, "transition_mma": 2,
+                  "transition_half_mma": 2},
+    (576, 960): {"coupling_mma": 60, "transition_half_mma": 4}}
+SERVE_F32_REQUESTS = 4
+
+
+def _serve_probe_class():
+    from vstnet_tpu_torch.serve import StyleService
+
+    class _ServeProbe(StyleService):
+        """A service that keeps, for every batch, its requests, its padded
+        shape, its launches and its device time."""
+
+        def __init__(self, ops, *a, **kw):
+            self.ops = ops
+            self.sizes, self.batches = [], []
+            super().__init__(*a, **kw)
+
+        def _drain_batch(self, first=None):
+            batch, stash = super()._drain_batch(first)
+            if batch is not None:
+                self.sizes.append(len(batch))
+            return batch, stash
+
+        def _stylize_batch(self, frames, style_name):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = self.ops.launch_counts()
+            start.record()
+            out = super()._stylize_batch(frames, style_name)
+            end.record()
+            after = self.ops.launch_counts()
+            end.synchronize()
+            self.batches.append({
+                "shape": tuple(frames.shape[:3]),
+                "ms": start.elapsed_time(end),
+                "launches": {k: v - before[k] for k, v in after.items()
+                             if v != before[k]}})
+            return out
+
+    return _ServeProbe
+
+
+def _png(arr):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _serve_breakdown(data, reps=3):
+    """A request's host work, each part alone on one thread: decoding the
+    content PNG (a handler thread) and encoding the reply PNG (the worker,
+    one reply after another)."""
+    from vstnet_tpu_torch.serve import _decode_image, _encode_png
+
+    arr = _decode_image(data, 1280, 4)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _decode_image(data, 1280, 4)
+    t_dec = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _encode_png(arr[0])
+    t_enc = (time.perf_counter() - t0) / reps
+    print(f"serve breakdown at {arr.shape[2]}x{arr.shape[1]}, each part "
+          f"alone on one host thread: request PNG decode {t_dec * 1e3:.1f} "
+          f"ms, reply PNG encode {t_enc * 1e3:.1f} ms")
+
+
+def phase_serve(ops, model, device, gen, total, smi):
+    """StyleService(fast=True) behind serve(port=0) in this process: one
+    style registered, a burst of concurrent requests at two bucket shapes,
+    each reply against the same content sent alone, launches per batch,
+    requests/s and latency; then a float32 service on a few of the same
+    contents."""
+    import io
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from vstnet_tpu_torch.serve import StyleService, serve
+
+    def up(svc):
+        httpd = serve(svc, host="127.0.0.1", port=0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        return httpd, th, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def down(httpd, th, svc):
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+        svc.close(timeout=60)
+
+    def call(url, data, method="POST"):
+        """(status, body, seconds); a non-200 reply raises HTTPError."""
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+
+    style = _png((_frames(gen, 1, ULTRA_STYLE, device)[0] * 255).round()
+                 .to(torch.uint8).cpu().numpy())
+    contents = []
+    for n, h, w in SERVE_BURST:
+        frames = (_frames(gen, n, (h, w), device) * 255).round().to(
+            torch.uint8).cpu().numpy()
+        contents += [(_png(f), (h, w)) for f in frames]
+
+    svc = _serve_probe_class()(ops, model, fast=True)
+    httpd, th, base = up(svc)
+    try:
+        ops.reset_launch_counts()
+        call(f"{base}/styles/s", style, "PUT")
+        reg = {k: v for k, v in ops.launch_counts().items() if v}
+        # one request of each shape first: the first batch at a shape
+        # pays cuBLAS set-up
+        for data, _ in contents[:1] + contents[-1:]:
+            call(f"{base}/stylize?style=s", data)
+        _add(total, ops.launch_counts())
+        svc.sizes.clear()
+        svc.batches.clear()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(contents)) as pool:
+            futs = [pool.submit(call, f"{base}/stylize?style=s", data)
+                    for data, _ in contents]
+            replies = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        _add(total, counts)
+        sizes, batches = list(svc.sizes), list(svc.batches)
+        alone = [call(f"{base}/stylize?style=s", data)[1]
+                 for data, _ in contents]
+    finally:
+        down(httpd, th, svc)
+    if reg != ULTRA_STYLE_ENCODE:
+        raise AssertionError(f"serve registration launches {reg}, want "
+                             f"{ULTRA_STYLE_ENCODE}")
+    for (status, body, _), (_, (h, w)), solo in zip(replies, contents,
+                                                   alone):
+        if status != 200:
+            raise AssertionError(f"serve: status {status}")
+        if np.asarray(Image.open(io.BytesIO(body))).shape != (
+                h - h % 4, w - w % 4, 3):
+            raise AssertionError(f"serve: reply shape at {w}x{h}")
+        if body != solo:
+            raise AssertionError(f"serve: a {w}x{h} reply differs from the "
+                                 f"same content sent alone")
+    for b in batches:
+        want = SERVE_PER_BATCH.get(b["shape"][1:])
+        if b["launches"] != want:
+            raise AssertionError(f"serve batch {b['shape']}: launches "
+                                 f"{b['launches']}, want {want}")
+    lat = sorted(r[2] for r in replies)
+    p50, p95 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 95))
+    dev_ms = sum(b["ms"] for b in batches)
+    per_batch = ", ".join(f"{b['shape']} {b['ms']:.1f}" for b in batches)
+    print(f"serve fused: {len(contents)} concurrent requests "
+          f"({', '.join(f'{n} at {w}x{h}' for n, h, w in SERVE_BURST)}) "
+          f"in {wall:.3f} s = {len(contents) / wall:.2f} requests/s; "
+          f"{len(sizes)} batches, requests a batch {sizes} (mean "
+          f"{np.mean(sizes):.2f}); latency p50 {p50:.1f} ms, p95 "
+          f"{p95:.1f} ms; device {dev_ms:.1f} ms over the batches "
+          f"({per_batch}); "
+          f"every reply 200 and equal, bit for bit, to the same content "
+          f"sent alone; launches {counts}; on {smi}")
+
+    _serve_breakdown(contents[0][0])
+
+    svc32 = StyleService(model, fast=False)
+    httpd, th, base = up(svc32)
+    try:
+        call(f"{base}/styles/s", style, "PUT")
+        ops.reset_launch_counts()
+        with ThreadPoolExecutor(max_workers=SERVE_F32_REQUESTS) as pool:
+            futs = [pool.submit(call, f"{base}/stylize?style=s", data)
+                    for data, _ in contents[:SERVE_F32_REQUESTS]]
+            ref = [f.result()[1] for f in futs]
+        if any(ops.launch_counts().values()):
+            raise AssertionError("the float32 service launched a kernel")
+    finally:
+        down(httpd, th, svc32)
+    for got, want in zip(replies, ref):
+        p = _u8_psnr(np.asarray(Image.open(io.BytesIO(got[1]))),
+                     np.asarray(Image.open(io.BytesIO(want))))
+        print(f"gate serve fused vs float32 reply: PSNR {p:.2f} dB "
+              f"(>= {PSNR_GATE})")
+        if not p >= PSNR_GATE:
+            raise AssertionError(f"serve PSNR {p}")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -1558,6 +2110,10 @@ def main():
     print(f"phase masked done at {time.perf_counter() - t0:.1f} s")
     phase_cli(ops, device, gen, total, smi)
     print(f"phase cli done at {time.perf_counter() - t0:.1f} s")
+    phase_ultra(ops, model, device, gen, total, smi)
+    print(f"phase ultra done at {time.perf_counter() - t0:.1f} s")
+    phase_serve(ops, model, device, gen, total, smi)
+    print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -1573,8 +2129,10 @@ def main():
     print("kernels: launches are those of the main paths' runs (global 2 "
           "bf16 batches and 1 float32 batch at 512x512 and 1 float32 batch "
           "at 640x360, masked 2 batches, seg 256 and 640x360 one each, "
-          "phase 7's CLI runs and photo_pipeline); ms, plain_ms, bound_ms and library_ms are sums over the launches of "
-          "one encode at B=8 (coupling_mma 30 "
+          "phase 7's CLI runs and photo_pipeline, phase 8's fused tiled "
+          "runs at 3840x2160, phase 9's fused service); ms, plain_ms, "
+          "bound_ms and library_ms are sums over the launches of one "
+          "encode at B=8 (coupling_mma 30 "
           "and transition_mma 2 in bf16 at 512x512, transition_half_mma 2 "
           "in bf16 at 640x360; coupling, transition and transition_half, "
           "the float32 route's kernels, 30, 2 and 2 in float32 at the same "

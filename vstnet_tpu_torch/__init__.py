@@ -21,8 +21,14 @@ Every factory and constructor builds on the current CUDA device when no
 device is given and raises when there is none; pass device="cpu" for the
 CPU (`resolve_device`). The encoder, decoder and segment factories return
 `(fn, device)` pairs; `fn` takes and returns NHWC tensors on `device`.
-The command-line entry points are `vstnet_tpu_torch.cli.image_transfer`
-and `vstnet_tpu_torch.cli.video_transfer`.
+
+Images of any size (4K and above) stylize tile by tile in bounded device
+memory through `models.ultra.stylize_tiled`, `stylize_tiled_masked` and
+`stylize_tiled_interp`; `serve.StyleService` (with `serve.serve`) is the
+HTTP style service, with shape buckets (`runtime.buckets`) and request
+coalescing. The command-line entry points are
+`vstnet_tpu_torch.cli.image_transfer` (tiling above --ultra_threshold),
+`vstnet_tpu_torch.cli.video_transfer` and `vstnet_tpu_torch.cli.serve`.
 """
 
 __version__ = "0.1.0"

@@ -9,11 +9,14 @@ more, --device (default: the CUDA card; `--device cpu` runs on the CPU):
         --out_dir output --max_size 1280 [--alpha_c A] [--fast] \
         [--styles S1 S2 ... [--alpha_s W1 W2 ...]] \
         [--auto_seg | --content_seg C.png --style_seg S.png] \
-        [--save_seg_label] [--save_seg_color] [--min_ratio R]
+        [--save_seg_label] [--save_seg_color] [--min_ratio R] \
+        [--ultra_threshold N] [--tile T] [--overlap O]
 
-Not in the port: native .msgpack checkpoints (a format of the JAX package)
-and the ultra-resolution tiled path; an image whose longer side exceeds
---ultra_threshold is refused.
+A content whose longer side exceeds --ultra_threshold takes the tiled
+ultra-resolution path (models/ultra.py) in every mode: global, regional
+(--auto_seg or given masks), interpolated (--styles/--alpha_s or
+--alpha_c), and fused (--fast). Not in the port: native .msgpack
+checkpoints (a format of the JAX package).
 """
 
 from __future__ import annotations
@@ -58,9 +61,8 @@ def build_parser():
                    help="run the segmenter on a downscale capped at this "
                         "size (0 = a cap of 1024)")
     p.add_argument("--ultra_threshold", type=int, default=1536,
-                   help="images larger than this need the tiled "
-                        "ultra-resolution path, which the port does not "
-                        "have yet: they are refused")
+                   help="route images larger than this through spatial "
+                        "tiling (models/ultra.py)")
     p.add_argument("--tile", type=int, default=1024)
     p.add_argument("--overlap", type=int, default=128)
     p.add_argument("--fast", action="store_true", default=False,
@@ -138,12 +140,6 @@ def main(argv=None):
     ds = model.cfg.down_scale
     # uint8 host arrays, normalised on the device
     content = load_image(args.content, args.max_size, ds, as_uint8=True)
-    if max(content.shape[1:3]) > args.ultra_threshold:
-        raise SystemExit(
-            f"error: the content is {content.shape[2]}x{content.shape[1]}, "
-            f"above --ultra_threshold {args.ultra_threshold}: that needs "
-            "the tiled ultra-resolution path (models/ultra.py), which the "
-            "port does not have yet; lower --max_size or run vstnet_tpu")
     style_paths = args.styles if alpha_s is not None else [args.style]
     style = load_image(style_paths[0], args.max_size, ds, as_uint8=True)
 
@@ -182,6 +178,7 @@ def main(argv=None):
 
     c = device_put_image(content, device)
     s = device_put_image(style, device)
+    styles = None
     if alpha_s is not None:
         # every style at the first style's shape (the factors are
         # statistics, stable under scale; the stack needs one shape)
@@ -192,8 +189,12 @@ def main(argv=None):
             if si.shape[1:3] != s.shape[1:3]:
                 si = resize_bilinear(si, s.shape[1], s.shape[2])
             parts.append(si)
-        out = model.stylize_multi(c, torch.cat(parts), alpha_s,
-                                  alpha_c=args.alpha_c, fast=args.fast)
+        styles = torch.cat(parts)
+    if max(content.shape[1:3]) > args.ultra_threshold:
+        out = _ultra(args, model, c, s, styles, alpha_s, cmask, smask)
+    elif alpha_s is not None:
+        out = model.stylize_multi(c, styles, alpha_s, alpha_c=args.alpha_c,
+                                  fast=args.fast)
     elif cmask is not None:
         out = model.stylize(c, s, cmask, smask, fast=args.fast)
     elif args.alpha_c is not None:
@@ -201,6 +202,45 @@ def main(argv=None):
     else:
         out = model.stylize(c, s, fast=args.fast)
     return _finish(args, style_paths, out)
+
+
+def _ultra(args, model, c, s, styles, alpha_s, cmask, smask):
+    """The tiled ultra-resolution path (models/ultra.py) in the mode the
+    flags pick: regional under masks, interpolated (--styles/--alpha_s or
+    --alpha_c) or global; --fast tiles through the fused kernels. A style
+    above the threshold is shrunk to it first (its factors are statistics,
+    stable under scale), its mask by nearest."""
+    from vstnet_tpu_torch.models import cwct, ultra
+    from vstnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+
+    if max(s.shape[1:3]) > args.ultra_threshold:
+        sh, sw = s.shape[1:3]
+        f = args.ultra_threshold / max(sh, sw)
+        nh = max(int(sh * f) // 4 * 4, 4)
+        nw = max(int(sw * f) // 4 * 4, 4)
+        print(f"note: style resized {sh}x{sw} -> {nh}x{nw} for factor "
+              "computation (statistics are scale-stable)")
+        s = resize_bilinear(s, nh, nw)
+        if styles is not None:
+            styles = resize_bilinear(styles, nh, nw)
+        if smask is not None:
+            smask = resize_nearest(smask, nh, nw)
+    print(f"ultra-res: tiling {c.shape[1]}x{c.shape[2]} "
+          f"(tile={args.tile}, overlap={args.overlap}"
+          + (", fused bf16" if args.fast else "") + ")")
+    kw = {"tile": args.tile, "overlap": args.overlap,
+          "fast_params": model.fast_params if args.fast else None}
+    if cmask is not None:
+        return ultra.stylize_tiled_masked(
+            model.net, c, s, cmask, smask, model.cfg,
+            max_labels=cwct.label_capacity(cmask), **kw)
+    if alpha_s is not None or args.alpha_c is not None:
+        s_list, a_s = ((list(styles.split(1)), alpha_s)
+                       if alpha_s is not None else ([s], [1.0]))
+        return ultra.stylize_tiled_interp(
+            model.net, c, s_list, a_s, model.cfg,
+            alpha_c=float(args.alpha_c or 0.0), **kw)
+    return ultra.stylize_tiled(model.net, c, s, model.cfg, **kw)
 
 
 def _finish(args, style_paths, out):

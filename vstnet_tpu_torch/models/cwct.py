@@ -2,8 +2,9 @@
 
 Counterpart of vstnet_tpu/models/cwct.py (robust_cholesky, the global
 transfer, multi-style interpolation, the precomputed style factors and
-their packed-latent forms, and the regional transfer under semantic masks
-at the end of the file). The
+their packed-latent forms, the transform from streamed statistics that
+the ultra-resolution tiler uses, and the regional transfer under semantic
+masks at the end of the file). The
 whole transform is one per-sample (or per-region) product y = T x + b with
 T = Ls Lc^{-1} and b = mu_s - T mu_c.
 
@@ -209,6 +210,32 @@ def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT,
                                  use_double).to(content_feat.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Streaming statistics: the ultra-resolution tiler (models/ultra.py)
+# ---------------------------------------------------------------------------
+
+def transform_from_stats(mean_c, cov_c, ls, mu_s, eps: float = EPS_DEFAULT):
+    """(T (C, C), b (C,)) of the global transfer from precomputed content
+    statistics and style factors: T = Ls Lc^{-1}, b = mu_s - T mu_c, in
+    float32 with TF32 off. The statistics may come from moments summed
+    over tiles (models/ultra.py)."""
+    with true_f32_matmul():
+        lc = robust_cholesky(cov_c.float(), eps)
+        t = ls.float() @ _inv_lower(lc)
+        b = mu_s.float() - t @ mean_c.float()
+    return t, b
+
+
+def apply_transform(feat, t, b):
+    """y = x T^T + b on every pixel of an NHWC latent, summed in float32
+    (TF32 off) and returned in the latent's dtype."""
+    shape = feat.shape
+    x = feat.reshape(-1, shape[-1]).float()
+    with true_f32_matmul():
+        y = x @ t.float().t() + b.float()
+    return y.reshape(shape).to(feat.dtype)
+
+
 def mix_factors(ls, mu, alpha_s):
     """(sum_i alpha_i Ls_i, sum_i alpha_i mu_i) over the leading (style)
     axis of ls (S, ..., C, C) and mu (S, ..., C), in float32."""
@@ -290,11 +317,15 @@ def _chunks(n: int, chunk: int):
 
 
 def region_moments(x, m, labels, chunk: int = REGION_CHUNK):
-    """Per-label raw moments of x (N, C) under labels m (N,):
-    counts (K,), sums (K, C), gram (K, C, C), float32. Raw moments, not
-    means and covariances, so that a caller can add them up over several
-    passes before stats_from_moments."""
-    n, c = x.shape
+    """Per-label raw moments of x (..., N, C) under labels m (..., N):
+    counts (K,), sums (K, C), gram (K, C, C), float32, summed over every
+    row. Raw moments, not means and covariances, so that a caller can add
+    them up over several passes (the tiler's tiles, models/ultra.py) before
+    stats_from_moments. Leading dims are rows too: a batch of tiles gives
+    the sum of the JAX package's batched=True moments over its tiles."""
+    c = x.shape[-1]
+    x, m = x.reshape(-1, c), m.reshape(-1)
+    n = x.shape[0]
     k = labels.shape[0]
     cnt = torch.zeros((k,), dtype=torch.float32, device=x.device)
     sm = torch.zeros((k, c), dtype=torch.float32, device=x.device)
