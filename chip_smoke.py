@@ -192,14 +192,20 @@ K5_BIG = [("1024 s1", 256, 256, 256), ("1024 s2", 512, 128, 128),
           ("1024 s3", 1280, 64, 64), ("1024 s4", 2048, 32, 32)]
 K5_RAGGED = ("ragged", 200, 23, 17)
 # the tiler's batch of 4 tiles at 1024x1024 (K1 at its three widths, K2 at
-# both stride-2 blocks) and the service's 960x576 bucket at batch 8 (K3 at
-# both: half-res widths 480 and 240); timed in phase 6 for the record, not
-# part of the kernels line's sums
+# both stride-2 blocks) and the service's buckets at its largest batch:
+# 960x576 (K3 at both stride-2 blocks: half-res widths 480 and 240) and
+# 1280x768 (T1 K2 at half-res width 640, T2 K3 at 320). Phase 3 holds the
+# kernels against their plain versions at every one of these shapes;
+# phase 6 times them for the record, outside the kernels line's sums
 TILE_B = 4
 TILE_K1 = [("tile s1", 16, 1024, 1024), ("tile s2", 64, 512, 512),
            ("tile s3", 256, 256, 256)]
 TILE_K2 = [("tile T1", 16, 1024, 1024), ("tile T2", 64, 512, 512)]
-BUCKET_K3 = [("bucket T1", 16, 576, 960), ("bucket T2", 64, 288, 480)]
+SERVE_B = 8
+BUCKET_K2 = [("bucket 1280x768 T1", 16, 768, 1280)]
+BUCKET_K3 = [("bucket 960x576 T1", 16, 576, 960),
+             ("bucket 960x576 T2", 64, 288, 480),
+             ("bucket 1280x768 T2", 64, 384, 640)]
 
 # "coupling" is the CUDA-core kernel (float32) and "coupling_mma" the
 # tensor-core kernels (bf16 at C=16, C=64 and C=256) of the one K1 wrapper,
@@ -488,6 +494,34 @@ def phase_kernels(cf, att, dw, device, gen):
         x1 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
         x2 = torch.randn((2, c, h, w), generator=gen).to(device, bf)
         _k2_k3_checks(cf, f"tails C={c} {h}x{w} bf16 mma", x1, x2, wp, worst)
+    # the tiler's and the service's shapes at their batches, bf16 (the
+    # routes they run); the streams are drawn on the card
+    dgen = torch.Generator(device=device).manual_seed(1)
+
+    def streams(b, c, h, w):
+        return (torch.randn((b, c, h, w), generator=dgen, device=device,
+                            dtype=bf) for _ in range(2))
+
+    for name, c, h, w in TILE_K1:
+        wp = cf.pack_coupling_weights(
+            _rand_branch(gen, c, c // 4, c, device), bf)
+        x1, x2 = streams(TILE_B, c, h, w)
+        for inv in (False, True):
+            got = cf.fused_coupling(x1, x2, wp, inverse=inv)
+            ref = cf.coupling_block_plain(x1, x2, wp, inverse=inv)
+            torch.cuda.synchronize()
+            _check(f"K1 {name} C={c} {h}x{w} B={TILE_B} bf16 mma "
+                   f"{'inv' if inv else 'fwd'}", got, ref, _bf16_tol(ref),
+                   worst, "coupling_mma")
+        _k1_bf16_round_trip(cf, f"K1 {name} C={c} B={TILE_B}", x1, x2, wp)
+    for (name, c, h, w), b in ([(k, TILE_B) for k in TILE_K2]
+                               + [(k, SERVE_B) for k in BUCKET_K2
+                                  + BUCKET_K3]):
+        wp = cf.pack_transition_weights(
+            _rand_branch(gen, c, c, 4 * c, device), bf)
+        x1, x2 = streams(b, c, h, w)
+        _k2_k3_checks(cf, f"{name} C={c} {h}x{w} B={b} bf16 mma", x1, x2,
+                      wp, worst)
     for name, g, n, m in K4_CHECKS:
         q, k, v = (torch.randn(s, generator=gen).to(device, bf)
                    for s in ((g, n, 64), (g, m, 64), (g, m, 64)))
@@ -996,7 +1030,8 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         _line("coupling_mma", name, f"C={c} {h}x{w} B={TILE_B}", tk, tp,
               bound_coupling(TILE_B, c, h, w))
     for (name, c, h, w), b, half in ([(k, TILE_B, False) for k in TILE_K2]
-                                     + [(k, batch, True) for k in BUCKET_K3]):
+                                     + [(k, SERVE_B, True)
+                                        for k in BUCKET_K3]):
         wp = cf.pack_transition_weights(
             _rand_branch(gen, c, c, 4 * c, device), bf)
         xa, xb = (torch.randn((b, c, h, w), generator=gen).to(device, bf)
@@ -1691,7 +1726,7 @@ def _ultra_breakdown(root, out, device):
 
     _, t_load = _timed(lambda: load_image(f"{root}/content.png",
                                           max(ULTRA_HW), 4, as_uint8=True))
-    x = torch.from_numpy(out).to(device)[None].float() / 255.0
+    x = torch.from_numpy(out.copy()).to(device)[None].float() / 255.0
     _, t_save = _timed(lambda: save_image(x, f"{root}/save_probe.png"))
     _, t_init = _timed(lambda: StyleModel.random_init(device=device))
     print(f"ultra CLI breakdown, each part alone: content PNG load "
@@ -1882,7 +1917,14 @@ SERVE_PER_BATCH = {
     (768, 1280): {"coupling_mma": 60, "transition_mma": 2,
                   "transition_half_mma": 2},
     (576, 960): {"coupling_mma": 60, "transition_half_mma": 4}}
-SERVE_F32_REQUESTS = 4
+# the float32 service gets this many requests of each burst shape
+SERVE_F32_EACH = 2
+# the steady window: closed-loop clients, each sending its next request as
+# soon as its last reply came, measured for SERVE_WINDOW_S after
+# SERVE_WARM_S of warm-up
+SERVE_CLIENTS = 8
+SERVE_WARM_S = 3.0
+SERVE_WINDOW_S = 30.0
 
 
 def _serve_probe_class():
@@ -1890,7 +1932,8 @@ def _serve_probe_class():
 
     class _ServeProbe(StyleService):
         """A service that keeps, for every batch, its requests, its padded
-        shape, its launches and its device time."""
+        shape, when it ended on time.perf_counter, its launches and its
+        device time."""
 
         def __init__(self, ops, *a, **kw):
             self.ops = ops
@@ -1914,6 +1957,7 @@ def _serve_probe_class():
             end.synchronize()
             self.batches.append({
                 "shape": tuple(frames.shape[:3]),
+                "t": time.perf_counter(),
                 "ms": start.elapsed_time(end),
                 "launches": {k: v - before[k] for k, v in after.items()
                              if v != before[k]}})
@@ -1952,12 +1996,119 @@ def _serve_breakdown(data, reps=3):
           f"ms, reply PNG encode {t_enc * 1e3:.1f} ms")
 
 
+def _tail(lat_s):
+    """'p50 x ms, pK y ms, p95 z ms (n requests)': pK is the highest whole
+    percentile with at least ten samples beyond it."""
+    import numpy as np
+
+    n = len(lat_s)
+    k = max(50, int(100 * (n - 10) / n)) if n > 10 else 50
+    qs = sorted({50, k, 95})
+    return ", ".join(f"p{q} {float(np.percentile(lat_s, q)) * 1e3:.1f} ms"
+                     for q in qs) + f" ({n} requests)"
+
+
+def _serve_window(call, url, contents, alone):
+    """SERVE_CLIENTS closed-loop clients on the live service, each cycling
+    through its share of the contents until the window ends. Returns the
+    requests that ended inside the window as (start, end, seconds), and
+    the window's (start, end) on time.perf_counter. Every reply must be
+    200 and equal the same content sent alone."""
+    import threading
+
+    t_w0 = time.perf_counter() + SERVE_WARM_S
+    t_w1 = t_w0 + SERVE_WINDOW_S
+    done, errors = [], []
+
+    def client(k):
+        idx = list(range(k, len(contents), SERVE_CLIENTS))
+        i = 0
+        while time.perf_counter() < t_w1:
+            n = idx[i % len(idx)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                status, body, sec = call(url, contents[n][0])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"{type(e).__name__}: {e}")
+                return
+            if status != 200 or body != alone[n]:
+                errors.append(f"request {n}: status {status}, equal to "
+                              f"alone {body == alone[n]}")
+                return
+            done.append((t0, t0 + sec, sec))
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_WARM_S + SERVE_WINDOW_S + 300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve window: {errors or 'a client hung'}")
+    return [d for d in done if t_w0 <= d[1] <= t_w1], (t_w0, t_w1)
+
+
+def _serve_batched_cwct(model, ls, mu, gen, device):
+    """The service's batch with the cWCT as one batched call against the
+    per-frame calls the service makes, on both of its routes: max abs
+    difference of the transferred latents and of the uint8 outputs, and
+    each form's time, at both burst buckets and the service's largest
+    batch. The fused route uses the registered style's factors (ls, mu),
+    the float32 route the first frame's. Printed, not gated: it records
+    why the service runs the cWCT frame by frame."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models import revresnet_fast as rf
+
+    fp, cfg, net = model.fast_params, model.cfg, model.net
+    c = cfg.latent_channels
+    for h, w in sorted(SERVE_PER_BATCH):
+        x = (_frames(gen, SERVE_B, (h, w), device) * 255).round() / 255.0
+        with torch.no_grad():
+            zp = rf.encode_fast(fp, x.to(fp["dtype"]), cfg,
+                                packed_latent=True)
+            z32 = net.encode(x)
+            ls32, mu32 = cwct.style_factors(z32[:1])
+            routes = {
+                "fused": (zp, lambda z: cwct.transfer_with_factors_packed(
+                    z, ls, mu, c), lambda z: rf.decode_fast(
+                        fp, z, cfg, packed_latent=True)),
+                "float32": (z32, lambda z: cwct.transfer_with_factors(
+                    z, ls32, mu32), net.decode)}
+            for route, (z, transfer, decode) in routes.items():
+
+                def loop():
+                    return torch.cat([transfer(z[i:i + 1])
+                                      for i in range(z.shape[0])])
+
+                def batched():
+                    return transfer(z)
+
+                z_loop, z_bat = loop(), batched()
+                t_loop = _time_ms(loop, iters=5)
+                t_bat = _time_ms(batched, iters=5)
+                o_loop, o_bat = (torch.round(decode(v).float().clamp(0, 1)
+                                             * 255.0)
+                                 for v in (z_loop, z_bat))
+                torch.cuda.synchronize()
+                print(f"serve cWCT {route} at {w}x{h} B={SERVE_B}: one "
+                      f"batched call vs the per-frame calls: latent max abs "
+                      f"diff {_max_err(z_bat.float(), z_loop.float()):.3e} "
+                      f"(bit-equal {torch.equal(z_bat, z_loop)}), uint8 "
+                      f"output max diff {_max_err(o_bat, o_loop):.0f} "
+                      f"level(s) on {int((o_bat != o_loop).sum())} of "
+                      f"{o_loop.numel()} values; batched {t_bat:.3f} ms, "
+                      f"per-frame {t_loop:.3f} ms")
+
+
 def phase_serve(ops, model, device, gen, total, smi):
     """StyleService(fast=True) behind serve(port=0) in this process: one
     style registered, a burst of concurrent requests at two bucket shapes,
     each reply against the same content sent alone, launches per batch,
-    requests/s and latency; then a float32 service on a few of the same
-    contents."""
+    the burst's drain time and latencies; then a steady window of
+    closed-loop clients (requests/s, latency, the worker's device and
+    encode shares); the batched cWCT against the per-frame one; then a
+    float32 service on requests of both shapes."""
     import io
     import threading
     import urllib.request
@@ -1987,6 +2138,14 @@ def phase_serve(ops, model, device, gen, total, smi):
         with urllib.request.urlopen(req, timeout=300) as r:
             return r.status, r.read(), time.perf_counter() - t0
 
+    def check_launches(batches, what):
+        for b in batches:
+            want = SERVE_PER_BATCH.get(b["shape"][1:])
+            if b["launches"] != want:
+                raise AssertionError(f"serve {what} batch {b['shape']}: "
+                                     f"launches {b['launches']}, want "
+                                     f"{want}")
+
     style = _png((_frames(gen, 1, ULTRA_STYLE, device)[0] * 255).round()
                  .to(torch.uint8).cpu().numpy())
     contents = []
@@ -1998,28 +2157,36 @@ def phase_serve(ops, model, device, gen, total, smi):
     svc = _serve_probe_class()(ops, model, fast=True)
     httpd, th, base = up(svc)
     try:
+        url = f"{base}/stylize?style=s"
         ops.reset_launch_counts()
         call(f"{base}/styles/s", style, "PUT")
         reg = {k: v for k, v in ops.launch_counts().items() if v}
         # one request of each shape first: the first batch at a shape
         # pays cuBLAS set-up
         for data, _ in contents[:1] + contents[-1:]:
-            call(f"{base}/stylize?style=s", data)
+            call(url, data)
         _add(total, ops.launch_counts())
         svc.sizes.clear()
         svc.batches.clear()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=len(contents)) as pool:
-            futs = [pool.submit(call, f"{base}/stylize?style=s", data)
-                    for data, _ in contents]
+            futs = [pool.submit(call, url, data) for data, _ in contents]
             replies = [f.result() for f in futs]
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         _add(total, counts)
         sizes, batches = list(svc.sizes), list(svc.batches)
-        alone = [call(f"{base}/stylize?style=s", data)[1]
-                 for data, _ in contents]
+        alone = [call(url, data)[1] for data, _ in contents]
+
+        svc.sizes.clear()
+        svc.batches.clear()
+        ops.reset_launch_counts()
+        win, (t_w0, t_w1) = _serve_window(call, url, contents, alone)
+        _add(total, ops.launch_counts())
+        w_batches = list(svc.batches)
+        w_log = [e for e in svc.batch_log if t_w0 <= e[0] <= t_w1]
+        ls, mu = svc.styles["s"]
     finally:
         down(httpd, th, svc)
     if reg != ULTRA_STYLE_ENCODE:
@@ -2035,47 +2202,70 @@ def phase_serve(ops, model, device, gen, total, smi):
         if body != solo:
             raise AssertionError(f"serve: a {w}x{h} reply differs from the "
                                  f"same content sent alone")
-    for b in batches:
-        want = SERVE_PER_BATCH.get(b["shape"][1:])
-        if b["launches"] != want:
-            raise AssertionError(f"serve batch {b['shape']}: launches "
-                                 f"{b['launches']}, want {want}")
-    lat = sorted(r[2] for r in replies)
-    p50, p95 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 95))
+    check_launches(batches, "burst")
+    check_launches(w_batches, "window")
+    lat = [r[2] for r in replies]
     dev_ms = sum(b["ms"] for b in batches)
     per_batch = ", ".join(f"{b['shape']} {b['ms']:.1f}" for b in batches)
-    print(f"serve fused: {len(contents)} concurrent requests "
+    print(f"serve fused burst: {len(contents)} requests sent at once "
           f"({', '.join(f'{n} at {w}x{h}' for n, h, w in SERVE_BURST)}) "
-          f"in {wall:.3f} s = {len(contents) / wall:.2f} requests/s; "
-          f"{len(sizes)} batches, requests a batch {sizes} (mean "
-          f"{np.mean(sizes):.2f}); latency p50 {p50:.1f} ms, p95 "
-          f"{p95:.1f} ms; device {dev_ms:.1f} ms over the batches "
-          f"({per_batch}); "
+          f"drained in {wall:.3f} s (start-up and tail included: not a "
+          f"steady rate); {len(sizes)} batches, requests a batch {sizes} "
+          f"(mean {np.mean(sizes):.2f}); latency {_tail(lat)}; device (CUDA "
+          f"events) {dev_ms:.1f} ms over the batches ({per_batch}); "
           f"every reply 200 and equal, bit for bit, to the same content "
           f"sent alone; launches {counts}; on {smi}")
 
-    _serve_breakdown(contents[0][0])
+    if not win or not w_log:
+        raise AssertionError("serve window: no request or batch completed")
+    w_sizes = [e[1] for e in w_log]
+    w_dev = sum(e[3] for e in w_log)
+    w_enc = sum(e[4] for e in w_log)
+    w_gpu = sum(b["ms"] for b in w_batches if t_w0 <= b["t"] <= t_w1) / 1e3
+    print(f"serve fused steady window: {SERVE_CLIENTS} closed-loop clients "
+          f"(their share of the {len(contents)} contents each, in turn), "
+          f"{SERVE_WINDOW_S:.0f} s after {SERVE_WARM_S:.0f} s of warm-up: "
+          f"{len(win)} requests ended in the window = "
+          f"{len(win) / SERVE_WINDOW_S:.2f} requests/s; latency "
+          f"{_tail([d[2] for d in win])}; "
+          f"{len(w_log)} batches ended in the window, mean "
+          f"{np.mean(w_sizes):.2f} requests a batch; the worker's host "
+          f"clock over the window: device section (lock, upload, launches, "
+          f"readback) {w_dev:.3f} s = "
+          f"{100 * w_dev / SERVE_WINDOW_S:.1f} %, "
+          f"reply PNG encodes {w_enc:.3f} s = "
+          f"{100 * w_enc / SERVE_WINDOW_S:.1f} % "
+          f"({1e3 * w_enc / sum(w_sizes):.1f} ms a reply); the device by "
+          f"CUDA events {w_gpu:.3f} s = {100 * w_gpu / SERVE_WINDOW_S:.1f} "
+          f"%; every reply 200 and equal "
+          f"to the same content sent alone; on {smi}")
 
+    _serve_breakdown(contents[0][0])
+    _serve_batched_cwct(model, ls, mu, gen, device)
+
+    offsets = np.cumsum([0] + [n for n, _, _ in SERVE_BURST[:-1]])
+    picks = [int(o) + i for o in offsets for i in range(SERVE_F32_EACH)]
     svc32 = StyleService(model, fast=False)
     httpd, th, base = up(svc32)
     try:
         call(f"{base}/styles/s", style, "PUT")
         ops.reset_launch_counts()
-        with ThreadPoolExecutor(max_workers=SERVE_F32_REQUESTS) as pool:
-            futs = [pool.submit(call, f"{base}/stylize?style=s", data)
-                    for data, _ in contents[:SERVE_F32_REQUESTS]]
+        with ThreadPoolExecutor(max_workers=len(picks)) as pool:
+            futs = [pool.submit(call, f"{base}/stylize?style=s",
+                                contents[i][0]) for i in picks]
             ref = [f.result()[1] for f in futs]
         if any(ops.launch_counts().values()):
             raise AssertionError("the float32 service launched a kernel")
     finally:
         down(httpd, th, svc32)
-    for got, want in zip(replies, ref):
-        p = _u8_psnr(np.asarray(Image.open(io.BytesIO(got[1]))),
+    for i, want in zip(picks, ref):
+        h, w = contents[i][1]
+        p = _u8_psnr(np.asarray(Image.open(io.BytesIO(replies[i][1]))),
                      np.asarray(Image.open(io.BytesIO(want))))
-        print(f"gate serve fused vs float32 reply: PSNR {p:.2f} dB "
-              f"(>= {PSNR_GATE})")
+        print(f"gate serve fused vs float32 reply at {w}x{h}: PSNR "
+              f"{p:.2f} dB (>= {PSNR_GATE})")
         if not p >= PSNR_GATE:
-            raise AssertionError(f"serve PSNR {p}")
+            raise AssertionError(f"serve PSNR {p} at {w}x{h}")
 
 
 def main():

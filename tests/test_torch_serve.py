@@ -212,6 +212,12 @@ def test_concurrent_requests_coalesce(rng):
     assert len(set(results)) == 4
     assert sum(service.batch_sizes) == 4
     assert np.mean(service.batch_sizes) > 1.0, service.batch_sizes
+    # the worker's per-batch record: one entry a batch, in order
+    log = list(service.batch_log)
+    assert [e[1] for e in log] == service.batch_sizes
+    for end, n, n_pad, dev_s, enc_s in log:
+        assert n <= n_pad < 2 * n and dev_s > 0.0 and enc_s > 0.0
+    assert [e[0] for e in log] == sorted(e[0] for e in log)
 
 
 def test_service_direct_batch_matches_single(rng):

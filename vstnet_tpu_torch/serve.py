@@ -18,13 +18,16 @@ Counterpart of vstnet_tpu/serve.py, with its endpoints and JSON bodies:
     is the float32 standard path.
 
 The transfer runs frame by frame inside a batch, so a request's pixels do
-not depend on its batch-mates (a batched covariance product may sum in
-another order at another batch count); on the fused path a reply equals
-the same content sent alone, bit for bit.
+not depend on its batch-mates: one batched call sums its statistics in
+another order at another batch count, which moves replies by uint8 levels
+(chip_smoke.py phase 9 prints by how much, and both forms' times). On the
+fused path a reply equals the same content sent alone, bit for bit.
 
 Only the worker and style registration touch the device, each under one
 lock, so a registration never interleaves with a batch; HTTP handler
-threads decode and encode images on the host. The model's device decides
+threads decode the request images on the host, and the worker encodes the
+replies. `batch_log` keeps, for each recent batch, the worker's host clock
+around its device section and its reply encodes. The model's device decides
 where everything runs (StyleModel's constructors put it on the CUDA card
 unless given device="cpu"). A failure in a batch (a kernel's included) is
 reported to each of its requests and never stops the worker: there is no
@@ -44,6 +47,7 @@ here. No third-party server: stdlib http.server with a threading mixin.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -120,6 +124,10 @@ class StyleService:
         # one user of the device at a time: the worker's batches and
         # style registrations
         self._device_lock = threading.Lock()
+        # (end time, requests, padded batch, device s, encode s) a batch,
+        # on time.perf_counter: the device section holds the lock wait,
+        # the upload, the launches and the readback
+        self.batch_log = collections.deque(maxlen=4096)
         self._q: "queue.Queue[Optional[_Job]]" = queue.Queue()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -257,14 +265,18 @@ class StyleService:
                 frames = np.concatenate(
                     [j.content for j in batch]
                     + [batch[0].content] * (n_pad - n), axis=0)
+                t0 = time.perf_counter()
                 with self._device_lock:
                     x = torch.from_numpy(frames).to(self.device)
                     out = self._stylize_batch(x, batch[0].key[2]).cpu()
+                t1 = time.perf_counter()
                 out = out.numpy()
                 for i, j in enumerate(batch):
                     h, w = j.hw
                     j.result = _encode_png(out[i, :h, :w])
                     j.done.set()
+                t2 = time.perf_counter()
+                self.batch_log.append((t2, n, n_pad, t1 - t0, t2 - t1))
             except Exception as e:  # report, never kill the worker
                 for j in batch:
                     j.error = f"{type(e).__name__}: {e}"
