@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
-ultra-resolution tiler and the HTTP style service through the entry points
-a user calls, at the full width and depth of PHOTO_CONFIG and SegFormer-B4
-(512x512 frames in bf16, 1280x720 clips, 3840x2160 images, 1280x720 and
-960x540 requests), with random weights made from a seed. Phases, in
+ultra-resolution tiler, the HTTP style service and the trainer through the
+entry points a user calls, at the full width and depth of PHOTO_CONFIG and
+SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
+1280x720 and 960x540 requests, 256x256 training crops), with random
+weights made from a seed. Phases, in
 order; any failure raises and the process exits non-zero:
 
   1. device   a CUDA card is present; print its nvidia-smi name and power
@@ -53,7 +54,7 @@ order; any failure raises and the process exits non-zero:
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
               with CUDA events.
-  7. cli      (run after phase 5; phases 7-9 before the timings) the
+  7. cli      (run after phase 5; phases 7-10 before the timings) the
               command-line entry points as a user runs them, on synthetic
               files: the video CLI on a 16-frame 1280x720 MJPEG clip,
               --batch 8, the default --max_size 1280, in bf16 global
@@ -92,6 +93,22 @@ order; any failure raises and the process exits non-zero:
               requests/s, requests a batch, p50/p95 latency; a float32
               service on four of the contents >= 40 dB against the fused
               replies.
+ 10. train    (after phase 9; no kernel of the port lies on this path)
+              the train CLI in the process, PHOTO_CONFIG at full depth,
+              float32, no VGG file (seeded random VGG): 24 content and 24
+              style PNGs of 600x520, B=2, 512 resizes, 256 crops, 8 image
+              and 4 temporal steps, then --resume to step 16; loss.log's 16
+              lines in the reference format with finite losses and
+              loss_tmp > 0 in the temporal steps, model_image.pt (step 8)
+              and model_video.pt (step 16) stylizing finite frames through
+              StyleModel, the sample grids and index.html. loss_and_grads at
+              128x128 B=2 with every term on, float32 against float64 on the
+              card and bf16 against float32 (gates printed beside the
+              numbers); a step resumed from last.pt equal to the
+              uninterrupted one. Steps/s (CUDA events, 10 steps after 3),
+              peak memory and the device's idle share of one step
+              (torch.profiler) at 256x256 B=2 in both phases, float32 and
+              bf16, remat on and off; 2 steps of ARTISTIC_CONFIG.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -2268,6 +2285,337 @@ def phase_serve(ops, model, device, gen, total, smi):
             raise AssertionError(f"serve PSNR {p} at {w}x{h}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training
+# ---------------------------------------------------------------------------
+
+# Gates of phase 10, set from the first card run (H100 80GB HBM3, 700 W).
+# A float32 loss_and_grads at full depth (TF32 off) against the same call in
+# float64 on the card: each aux loss within TRAIN_F64_AUX_RTOL (measured
+# 3.9e-4 at worst), the flattened gradient's cosine above TRAIN_F64_COS
+# (measured 0.999999) and its relative L2 error below TRAIN_F64_REL_L2
+# (measured 1.4e-3: the gradient is a sum of terms that cancel, decode
+# undoing encode, and cuDNN's float32 backward sums in an order that leaves
+# a residue float64 does not). bf16 against float32: the contract of
+# tests/test_train.py's bf16 step (cosine > 0.95; aux rtol 0.1, atol 5e-3),
+# which the CPU test holds in its own setting, on the same temporal call
+# with every term on. The aux bounds apply to each loss term; loss_total,
+# their weighted sum, is printed: it carries 10 x the cycle loss, which is
+# zero in exact arithmetic for any weights (decode undoes encode, and the
+# Cholesky cWCT of an affine image of z_c returns z_c), so its value is
+# the route's roundoff, larger in bf16 by design (+59 %, within the atol;
+# loss_total +10.4 % and +10.8 % in two runs).
+# A step resumed from last.pt and last.pt.opt.pt against the uninterrupted
+# step on the same batch: the checkpoint restores the weights, Adam's
+# moments, its step and the schedule bit for bit; the step's parameters
+# then agree within TRAIN_RESUME_TOL, a tenth of one step's size (lr 1e-4;
+# a resume that lost Adam's moments moves parameters by ~lr). cuDNN runs
+# deterministic algorithms for the check, but the reflection pad's backward
+# adds with atomics, so two runs of one step differ (measured 5.4e-7; the
+# run prints that floor).
+TRAIN_F64_AUX_RTOL = 2e-3
+TRAIN_F64_COS = 0.99999
+TRAIN_F64_REL_L2 = 1e-2
+TRAIN_BF16_COS = 0.95
+TRAIN_BF16_AUX_RTOL = 0.1
+TRAIN_BF16_AUX_ATOL = 5e-3
+TRAIN_RESUME_TOL = 1e-5
+# the CLI run: 24 content and 24 style PNGs of about 600x520, so that the
+# loader resizes (shorter side to 512) and crops (256)
+TRAIN_IMAGES = (24, 520, 600)
+TRAIN_LINE = (r"^Iteration: (\d{8})/(\d{8})  content_loss:(\S+)  "
+              r"lap_loss:(\S+)  rec_loss:(\S+)  style_loss:(\S+)  "
+              r"loss_tmp:(\S+)  loss_tmp_GT:(\S+)  \((\S+) s/it\)$")
+
+
+def _flat_grads(grads):
+    return torch.cat([g.flatten().double() for g in grads.values()])
+
+
+def _train_batch(gen, b, hw, device):
+    """(a, s, flow, noise) on the card: smooth content and style crops, a
+    fake flow from the trainer's generator, noise at the trainer's
+    stddev."""
+    import numpy as np
+
+    from vstnet_tpu_torch.ops.warp import generate_fake_flow
+
+    a = _frames(gen, b, hw, device)
+    s = _frames(gen, b, hw, device)
+    f = generate_fake_flow(np.random.default_rng(7), hw, hw)
+    flow = torch.from_numpy(f).to(device)[None].expand(b, hw, hw, 2)
+    noise = (0.0015 * torch.randn(a.shape, generator=gen)).to(device)
+    return a, s, flow, noise
+
+
+def _train_cli(device, gen, smi):
+    """Part 1: the train CLI as a user runs it, two phases and a resume."""
+    import os
+    import re
+    import tempfile
+
+    from PIL import Image
+
+    from vstnet_tpu_torch.cli.train import main as train_main
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    tmp = tempfile.TemporaryDirectory(prefix="vstnet_train_")
+    root = tmp.name
+    n, h, w = TRAIN_IMAGES
+    for side in ("content", "style"):
+        os.makedirs(f"{root}/{side}")
+        imgs = (_frames(gen, n, (h, w), device) * 255).round().to(
+            torch.uint8).cpu().numpy()
+        for i, img in enumerate(imgs):
+            Image.fromarray(img).save(f"{root}/{side}/{i:02d}.png")
+    argv = ["--train_content", f"{root}/content",
+            "--train_style", f"{root}/style",
+            "--vgg_ckpoint", f"{root}/no_vgg.pth",
+            "--batch_size", "2", "--new_size", "512", "--crop_size", "256",
+            "--training_iterations", "8", "--fine_tuning_iterations", "8",
+            "--model_save_interval", "4", "--image_display_iter", "4",
+            "--image_save_iter", "8", "--display_size", "4",
+            "--log_every", "1", "--logs_directory", f"{root}/logs",
+            "--base_name", "run"]
+    run = f"{root}/logs/run"
+    ckpt = f"{run}/checkpoints"
+    state, out, wall1 = _run_cli(train_main, argv + ["--max_steps", "12"])
+    assert state.step == 12, state.step
+    assert "random VGG weights" in out
+    assert os.path.exists(f"{ckpt}/model_image.pt")
+    assert not os.path.exists(f"{ckpt}/model_video.pt")
+    state, out, wall2 = _run_cli(train_main,
+                                 argv + ["--max_steps", "4", "--resume"])
+    assert state.step == 16, state.step
+    assert "at iter 12" in out
+    lines = open(f"{run}/loss.log").read().splitlines()
+    assert len(lines) == 16, len(lines)
+    for i, line in enumerate(lines, 1):
+        m = re.match(TRAIN_LINE, line)
+        assert m, line
+        vals = [float(v) for v in m.groups()[2:8]]
+        assert int(m.group(1)) == i and int(m.group(2)) == 16, line
+        assert all(math.isfinite(v) for v in vals), line
+        # the step that starts past training_iterations (8) is temporal
+        assert (vals[4] > 0) == (i > 9), line
+    for name in ("model_image.pt", "model_video.pt", "last.pt",
+                 "last.pt.opt.pt"):
+        assert os.path.exists(f"{ckpt}/{name}"), name
+    for name in ("train_current.jpg", "train_00000008.jpg",
+                 "train_00000016.jpg"):
+        assert os.path.exists(f"{run}/images/{name}"), name
+    html = open(f"{run}/index.html").read()
+    assert "train_00000016.jpg" in html and "train_00000008.jpg" in html
+    x = _frames(gen, 2, 256, device)
+    for name in ("model_image.pt", "model_video.pt"):
+        model = StyleModel.from_checkpoint(f"{ckpt}/{name}", device=device)
+        y = model.stylize(x[:1], x[1:])
+        assert y.shape == (1, 256, 256, 3) and bool(torch.isfinite(y).all())
+    print(f"train cli: PHOTO_CONFIG full depth, B=2, 256 crops of 512 "
+          f"resizes, float32: 12 steps (8 image, 4 temporal) in {wall1:.2f} "
+          f"s, --resume 4 more (step 16) in {wall2:.2f} s, start-up, loader "
+          f"and samples included; loss.log 16 lines; last: {lines[-1]} "
+          f"[{smi}]")
+    tmp.cleanup()
+
+
+def _bf16_vs_f32(net, vgg, batch, weights, ref, ref_aux, smi):
+    """The temporal loss_and_grads in bf16 against the float32 gradient
+    `ref` and aux `ref_aux` of the same call: float32 gradients, finite,
+    cosine above TRAIN_BF16_COS, each loss term within the contract's aux
+    bounds; loss_total, their weighted sum, is printed (see the gates)."""
+    from vstnet_tpu_torch.train.losses import AUX_KEYS, loss_and_grads
+
+    g16, aux16 = loss_and_grads(net, vgg, *batch[:2], weights, *batch[2:],
+                                True, precision="bf16")
+    assert all(g.dtype == torch.float32 for g in g16.values())
+    g16 = _flat_grads(g16)
+    cos = float(ref @ g16 / (ref.norm() * g16.norm()))
+    dev = {k: abs(float(aux16[k]) - float(ref_aux[k])) for k in AUX_KEYS}
+    bad = [k for k in AUX_KEYS[:-1] if dev[k] > TRAIN_BF16_AUX_ATOL
+           + TRAIN_BF16_AUX_RTOL * abs(float(ref_aux[k]))]
+    total = dev["loss_total"] / abs(float(ref_aux["loss_total"]))
+    print(f"train bf16 vs f32 (same inputs): grad cosine {cos:.5f} (gate > "
+          f"{TRAIN_BF16_COS}), aux bf16/f32 "
+          + ", ".join(f"{k} {float(aux16[k]):.6g}/{float(ref_aux[k]):.6g}"
+                      for k in AUX_KEYS)
+          + f" (gate on each term: rtol {TRAIN_BF16_AUX_RTOL}, atol "
+          f"{TRAIN_BF16_AUX_ATOL}; loss_total off by {100 * total:.1f} %) "
+          f"[{smi}]")
+    assert bool(torch.isfinite(g16).all()) and cos > TRAIN_BF16_COS, cos
+    assert not bad, bad
+
+
+def _train_correctness(device, gen, smi):
+    """Part 2: float32 against float64, bf16 against float32, and a resumed
+    step against the uninterrupted one."""
+    import copy
+    import tempfile
+
+    from vstnet_tpu_torch.config import PHOTO_CONFIG
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.train import trainer as tr
+    from vstnet_tpu_torch.train.losses import (
+        AUX_KEYS,
+        LossWeights,
+        loss_and_grads,
+    )
+
+    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
+    net.init_weights(torch.Generator().manual_seed(0))
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    a, s, flow, noise = _train_batch(gen, 2, 128, device)
+    w = LossWeights()
+    g32, aux32 = loss_and_grads(net, vgg, a, s, w, flow, noise, True)
+    g32 = _flat_grads(g32)
+    net64, vgg64 = copy.deepcopy(net).double(), copy.deepcopy(vgg).double()
+    g64, aux64 = loss_and_grads(net64, vgg64, a.double(), s.double(), w,
+                                flow, noise.double(), True,
+                                precision="f64")
+    g64 = _flat_grads(g64)
+    cos = float(g32 @ g64 / (g32.norm() * g64.norm()))
+    rel = float((g32 - g64).norm() / g64.norm())
+    errs = {k: abs(float(aux32[k]) / float(aux64[k]) - 1)
+            for k in AUX_KEYS if float(aux64[k]) != 0}
+    worst = max(errs.values())
+    print(f"train f32 vs f64: PHOTO_CONFIG full depth, B=2, 128x128, "
+          f"temporal, lap 1500, rec 10: aux rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (gate {TRAIN_F64_AUX_RTOL}), grad cosine {cos:.7f} (gate > "
+          f"{TRAIN_F64_COS}), rel L2 {rel:.3e} (gate < {TRAIN_F64_REL_L2}); "
+          + ", ".join(f"{k} {float(aux32[k]):.6g}" for k in AUX_KEYS)
+          + f" [{smi}]")
+    assert all(math.isfinite(float(aux32[k])) for k in AUX_KEYS)
+    assert worst <= TRAIN_F64_AUX_RTOL and cos > TRAIN_F64_COS
+    assert rel < TRAIN_F64_REL_L2
+    del net64, vgg64
+
+    _bf16_vs_f32(net, vgg, (a, s, flow, noise), w, g32, aux32, smi)
+
+    # resume: two steps, a checkpoint, then the same third step from the
+    # live state and from the checkpoint (twice, for the floor)
+    tc = tr.TrainConfig(weights=LossWeights(temporal=0.0))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = tr.init_train_state(tc, device)
+        batches = [_train_batch(gen, 2, 128, device)[:2] for _ in range(3)]
+        for a_, s_ in batches[:2]:
+            tr.train_step(state, vgg, a_, s_, tc)
+        tmp = tempfile.TemporaryDirectory(prefix="vstnet_resume_")
+        tr.save_checkpoint(state, tmp.name)
+        resumed = [tr.load_checkpoint(tc, tmp.name, device=device)
+                   for _ in range(2)]
+        r = resumed[0]
+        assert r.step == state.step == 2
+        for p, q in zip(state.net.parameters(), r.net.parameters()):
+            assert torch.equal(p, q)
+        so, ro = state.opt.state_dict(), r.opt.state_dict()
+        for i, st in so["state"].items():
+            for k, v in st.items():
+                assert torch.equal(v.cpu(), ro["state"][i][k].cpu()), k
+        assert state.sched.state_dict() == r.sched.state_dict()
+        for st in [state] + resumed:
+            tr.train_step(st, vgg, *batches[2], tc)
+
+        def diff(x, y):
+            return max(float((p - q).abs().max()) for p, q in
+                       zip(x.net.state_dict().values(),
+                           y.net.state_dict().values()))
+
+        d_resume, d_floor = diff(state, resumed[0]), diff(resumed[0],
+                                                          resumed[1])
+        tmp.cleanup()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"train resume: checkpoint at step 2 restores weights, Adam state "
+          f"and schedule bit for bit; step 3 resumed vs uninterrupted: max "
+          f"param diff {d_resume:.3e} (gate {TRAIN_RESUME_TOL}), two resumed "
+          f"runs of step 3: {d_floor:.3e} [{smi}]")
+    assert d_resume <= TRAIN_RESUME_TOL
+
+
+def _idle_share(step):
+    """One step under torch.profiler: (device busy ms, wall ms), or None
+    where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e3
+    except RuntimeError:
+        return None
+    return (busy, wall) if busy > 0 else None
+
+
+def _train_timings(device, gen, smi):
+    """Part 3: steps/s, peak memory and the device's idle share at 256x256
+    B=2, PHOTO_CONFIG, both phases, float32 and bf16, remat on and off;
+    then 2 steps of ARTISTIC_CONFIG."""
+    from vstnet_tpu_torch.config import ARTISTIC_CONFIG, PHOTO_CONFIG
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.train import trainer as tr
+
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    a, s, flow, noise = _train_batch(gen, 2, 256, device)
+    for precision in ("f32", "bf16"):
+        for remat in (True, False):
+            for temporal in (False, True):
+                tc = tr.TrainConfig(precision=precision)
+                cfg = PHOTO_CONFIG.with_remat() if remat else PHOTO_CONFIG
+                net = RevResNet(cfg, device=device)
+                net.init_weights(torch.Generator().manual_seed(0))
+                state = tr.init_train_state(tc, device, net)
+
+                def step():
+                    return tr.train_step(state, vgg, a, s, tc, flow, noise,
+                                         temporal)
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = _time_ms(step, iters=10, warmup=3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                aux = step()
+                assert math.isfinite(float(aux["loss_total"]))
+                idle = _idle_share(step)
+                idle_s = ("not measured" if idle is None else
+                          f"{100 * (1 - idle[0] / idle[1]):.1f} % (kernels "
+                          f"{idle[0]:.2f} ms of {idle[1]:.2f} ms)")
+                print(f"time train step PHOTO_CONFIG 256x256 B=2 "
+                      f"{precision} remat {'on' if remat else 'off'} "
+                      f"{'temporal' if temporal else 'image'}: {ms:.2f} ms "
+                      f"= {1e3 / ms:.3f} steps/s, peak memory {peak:.2f} "
+                      f"GiB, device idle {idle_s} [{smi}]")
+                del state, net
+    tc = tr.TrainConfig(mode="artistic")
+    state = tr.init_train_state(tc, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        aux = tr.train_step(state, vgg, a, s, tc)
+        assert math.isfinite(float(aux["loss_total"]))
+    torch.cuda.synchronize()
+    print(f"train ARTISTIC_CONFIG (hidden 64, sp_steps 1) 256x256 B=2 "
+          f"float32 remat on: 2 steps in {time.perf_counter() - t0:.2f} s "
+          f"(first calls included), loss_total {float(aux['loss_total']):.6g}"
+          f" [{smi}]")
+
+
+def phase_train(device, gen, smi):
+    """Phase 10: the training path (no kernel of the port lies on it)."""
+    _train_cli(device, gen, smi)
+    _train_correctness(device, gen, smi)
+    _train_timings(device, gen, smi)
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -2304,6 +2652,8 @@ def main():
     print(f"phase ultra done at {time.perf_counter() - t0:.1f} s")
     phase_serve(ops, model, device, gen, total, smi)
     print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
+    phase_train(device, gen, smi)
+    print(f"phase train done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

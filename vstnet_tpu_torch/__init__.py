@@ -26,9 +26,12 @@ Images of any size (4K and above) stylize tile by tile in bounded device
 memory through `models.ultra.stylize_tiled`, `stylize_tiled_masked` and
 `stylize_tiled_interp`; `serve.StyleService` (with `serve.serve`) is the
 HTTP style service, with shape buckets (`runtime.buckets`) and request
-coalescing. The command-line entry points are
-`vstnet_tpu_torch.cli.image_transfer` (tiling above --ultra_threshold),
-`vstnet_tpu_torch.cli.video_transfer` and `vstnet_tpu_torch.cli.serve`.
+coalescing. The trainer (`train.trainer.train`, the reference's two-phase
+recipe on `RevResNet.forward`/`inverse`, the differentiable pair; every
+inference entry point builds no autograd graph) trains new weights. The
+command-line entry points are `vstnet_tpu_torch.cli.image_transfer`
+(tiling above --ultra_threshold), `vstnet_tpu_torch.cli.video_transfer`,
+`vstnet_tpu_torch.cli.serve` and `vstnet_tpu_torch.cli.train`.
 """
 
 __version__ = "0.1.0"

@@ -27,6 +27,14 @@ class RevResNetConfig:
     kernel: int = 3
     # n_blocks in the channel-reduction tail
     reduction_blocks: int = 2
+    # Recompute each coupling block in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations: the
+    # training step holds only the inter-block stream states. Off for
+    # inference, which builds no graph.
+    remat: bool = False
+
+    def with_remat(self) -> "RevResNetConfig":
+        return dataclasses.replace(self, remat=True)
 
     @property
     def inj_pad(self) -> int:

@@ -7,7 +7,7 @@ torch state_dicts with the key schema
     channel_reduction.block_list.{i}.conv.{1,4,7}.{weight,bias}  i in 0..1
 
 which models/revresnet.RevResNet reproduces, so they load with a plain
-`load_state_dict`. Two loaders:
+`load_state_dict`; save_revresnet writes them. Two loaders:
 
   * load_revresnet(path): a reference .pt/.pth file, bare or wrapped in
     {"state_dict": ...}; strict=False fills what a foreign file lacks
@@ -83,6 +83,15 @@ def load_revresnet(path: str, strict: bool = True, cfg=None,
     net = RevResNet(cfg, device="cpu")
     net.init_weights(torch.Generator().manual_seed(seed))
     return tolerant_state_dict(sd, net.state_dict(), label=path)
+
+
+def save_revresnet(model, path: str, wrap: bool = True):
+    """Write a RevResNet's weights as a reference-format checkpoint:
+    {"state_dict": ...} (bare with wrap=False), float32 CPU tensors in the
+    reference key schema, which both packages' load_revresnet read."""
+    sd = {k: v.detach().float().cpu().clone()
+          for k, v in model.state_dict().items()}
+    torch.save({"state_dict": sd} if wrap else sd, path)
 
 
 def _branch(out, branch, prefix: str):

@@ -13,7 +13,8 @@ packed NCHW latent (B, G*C, h, w) of encode_fast(packed_latent=True) is a
 free reshape to it, and an NHWC latent (B, H, W, C) is its G = 1 case.
 
 Precision: statistics, Cholesky factors and transforms are float32 with
-TF32 off, even when the latent is bf16; the apply sums in float32 and
+TF32 off, even when the latent is bf16 (float64 on a float64 latent, for
+reference runs: ops.at_least_f32); the apply sums in float32 and
 rounds once to the latent's dtype. There is no hand-written kernel here:
 the 32x32 statistics, the Cholesky, the triangular solve and the apply
 product are torch ops.
@@ -24,6 +25,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from vstnet_tpu_torch.ops import at_least_f32
 
 EPS_DEFAULT = 2e-5
 
@@ -98,8 +101,8 @@ def _inv_lower(l):
 
 def _stats(x):
     """x: (B, G, C, N) -> mean (B, C), covariance (B, C, C) with /(n-1),
-    in float32."""
-    x = x.float()
+    in float32 (float64 for a float64 x)."""
+    x = at_least_f32(x)
     b, g, c, n = x.shape
     mean = x.mean(dim=(1, 3))
     xc = (x - mean[:, None, :, None]).transpose(1, 2).reshape(b, c, g * n)
@@ -122,17 +125,17 @@ def _transfer(x, ls, mu_s, eps, alpha_c=None, use_double: bool = False):
     with true_f32_matmul():
         mean, cov = _stats(x)
         lc = robust_cholesky(cov, eps, use_double=use_double)
-        ls = ls.float().expand(bsz, *ls.shape[1:])
-        mu = mu_s.float().expand(bsz, *mu_s.shape[1:])
+        wd = mean.dtype
+        ls = ls.to(wd).expand(bsz, *ls.shape[1:])
+        mu = mu_s.to(wd).expand(bsz, *mu_s.shape[1:])
         if alpha_c is not None:
-            a = torch.as_tensor(alpha_c, dtype=torch.float32,
-                                device=x.device)
+            a = torch.as_tensor(alpha_c, dtype=wd, device=x.device)
             ls = ls * (1.0 - a) + lc * a
             mu = mu * (1.0 - a) + mean * a
         t = ls @ _inv_lower(lc)
         b = mu - (t @ mean[..., None])[..., 0]
-        t = t.to(x.dtype).float()
-        y = torch.matmul(t[:, None], x.float()) + b[:, None, :, None]
+        t = t.to(x.dtype).to(wd)
+        y = torch.matmul(t[:, None], x.to(wd)) + b[:, None, :, None]
     return y.to(x.dtype)
 
 
@@ -203,10 +206,12 @@ def interp_with_factors(content_feat, mix_ls, mix_mu, alpha_c,
 def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT,
              use_double: bool = False):
     """Global cWCT of content (B, Hc, Wc, C) by style (B or 1, Hs, Ws, C),
-    computed in float32 and returned in the content's dtype. use_double
-    retries failed factorizations in float64 (robust_cholesky)."""
-    ls, mu = style_factors(style_feat.float(), eps, use_double)
-    return transfer_with_factors(content_feat.float(), ls, mu, eps,
+    computed in float32 (float64 on float64 features) and returned in the
+    content's dtype. use_double retries failed factorizations in float64
+    (robust_cholesky). Differentiable: the training step backpropagates
+    through the statistics, the Cholesky and the solve."""
+    ls, mu = style_factors(at_least_f32(style_feat), eps, use_double)
+    return transfer_with_factors(at_least_f32(content_feat), ls, mu, eps,
                                  use_double).to(content_feat.dtype)
 
 

@@ -15,15 +15,26 @@ inside. The modules are laid out so that the reference checkpoint keys
 `load_state_dict`. The channel-reduction head follows the research
 semantics (forward = split, blocks, merge, pixel shuffles; inverse = its
 exact algebraic inverse), not the reference package's forward/inverse mixup.
+
+Two entry pairs share one implementation. `encode`/`decode` are the
+inference path: they build no autograd graph and round as the fast path's
+kernels do (ops/pad_conv.residual_branch_nchw). `forward` (also `net(x)`)
+and `inverse` are the training path: differentiable, every conv in the
+input's dtype (residual_branch_native), and with cfg.remat each coupling
+block recomputed in the backward pass (torch.utils.checkpoint), the
+counterpart of the JAX package's _maybe_remat. In float32 both pairs
+compute the same values.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vstnet_tpu_torch.config import RevResNetConfig
 from vstnet_tpu_torch.device import resolve_device
+from vstnet_tpu_torch.ops import at_least_f32
 from vstnet_tpu_torch.ops.coupling import (
     channel_merge,
     channel_split,
@@ -32,7 +43,10 @@ from vstnet_tpu_torch.ops.coupling import (
     pixel_shuffle,
     pixel_unshuffle,
 )
-from vstnet_tpu_torch.ops.pad_conv import residual_branch_nchw
+from vstnet_tpu_torch.ops.pad_conv import (
+    residual_branch_native,
+    residual_branch_nchw,
+)
 
 
 class ResidualBlock(nn.Module):
@@ -64,10 +78,6 @@ class ResidualBlock(nn.Module):
         """((w1, b1), (w2, b2), (w3, b3)), OIHW."""
         return tuple((c.weight, c.bias) for c in self.convs())
 
-    def forward(self, x):
-        """F(x) in float32 (ops/pad_conv.residual_branch_nchw)."""
-        return residual_branch_nchw(x, self.weights(), self.stride)
-
 
 class ChannelReduction(nn.Module):
     def __init__(self, cfg: RevResNetConfig, device=None):
@@ -79,18 +89,19 @@ class ChannelReduction(nn.Module):
             for _ in range(cfg.reduction_blocks))
 
 
-def _block_forward(x1, x2, block: ResidualBlock):
+def _block_forward(x1, x2, block: ResidualBlock, branch):
     """(x1, x2) -> (x2, F(x2) + x1); stride 2 space-to-depths both streams
-    before the add."""
-    fx2 = block(x2)
+    before the add. `branch` computes F from (x, weights, stride)."""
+    fx2 = branch(x2, block.weights(), block.stride)
     if block.stride == 2:
         x1, x2 = pixel_unshuffle(x1), pixel_unshuffle(x2)
-    return x2, (fx2 + x1.float()).to(x1.dtype)
+    return x2, (fx2 + at_least_f32(x1)).to(x1.dtype)
 
 
-def _block_inverse(y1, y2, block: ResidualBlock):
+def _block_inverse(y1, y2, block: ResidualBlock, branch):
     x2 = pixel_shuffle(y1) if block.stride == 2 else y1
-    x1 = (y2.float() - block(x2)).to(y2.dtype)
+    x1 = (at_least_f32(y2) - branch(x2, block.weights(), block.stride)).to(
+        y2.dtype)
     if block.stride == 2:
         x1 = pixel_shuffle(x1)
     return x1, x2
@@ -126,11 +137,12 @@ class RevResNet(nn.Module):
                 conv.bias.zero_()
         return self
 
-    @torch.no_grad()
-    def encode(self, x):
-        """Image (B, H, W, 3) in [0,1] -> latent (B, H/ls, W/ls, 2*hidden).
+    def _step(self, fn, x1, x2, block, branch):
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, x1, x2, block, branch, use_reentrant=False)
+        return fn(x1, x2, block, branch)
 
-        H and W must be multiples of cfg.down_scale (= 4)."""
+    def _encode(self, x, branch):
         cfg = self.cfg
         ds = cfg.down_scale
         if x.shape[1] % ds or x.shape[2] % ds:
@@ -139,27 +151,42 @@ class RevResNet(nn.Module):
                 f"multiples of {ds}; pad the input first")
         x = injective_pad(x.permute(0, 3, 1, 2), cfg.inj_pad)
         x1, x2 = channel_split(x)
-        for block in self.stack:
-            x1, x2 = _block_forward(x1, x2, block)
         # channel reduction: merge + split of equal halves is the identity
-        for block in self.channel_reduction.block_list:
-            x1, x2 = _block_forward(x1, x2, block)
+        for block in self.blocks():
+            x1, x2 = self._step(_block_forward, x1, x2, block, branch)
         x = channel_merge(x1, x2)
         for _ in range(cfg.sp_steps):
             x = pixel_shuffle(x)
         return x.permute(0, 2, 3, 1)
 
-    @torch.no_grad()
-    def decode(self, z):
-        """Latent -> image; the exact inverse of `encode`."""
+    def _decode(self, z, branch):
         cfg = self.cfg
         x = z.permute(0, 3, 1, 2)
         for _ in range(cfg.sp_steps):
             x = pixel_unshuffle(x)
         x1, x2 = channel_split(x)
-        for block in reversed(self.channel_reduction.block_list):
-            x1, x2 = _block_inverse(x1, x2, block)
-        for block in reversed(self.stack):
-            x1, x2 = _block_inverse(x1, x2, block)
+        for block in reversed(self.blocks()):
+            x1, x2 = self._step(_block_inverse, x1, x2, block, branch)
         x = injective_unpad(channel_merge(x1, x2), cfg.inj_pad)
         return x.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def encode(self, x):
+        """Image (B, H, W, 3) in [0,1] -> latent (B, H/ls, W/ls, 2*hidden).
+
+        H and W must be multiples of cfg.down_scale (= 4). Builds no
+        autograd graph."""
+        return self._encode(x, residual_branch_nchw)
+
+    @torch.no_grad()
+    def decode(self, z):
+        """Latent -> image; the exact inverse of `encode`."""
+        return self._decode(z, residual_branch_nchw)
+
+    def forward(self, x):
+        """Differentiable encode for training, every conv in x's dtype."""
+        return self._encode(x, residual_branch_native)
+
+    def inverse(self, z):
+        """Differentiable decode for training; the inverse of `forward`."""
+        return self._decode(z, residual_branch_native)

@@ -9,7 +9,18 @@ kernel (csrc/coupling.cu) and "coupling_mma" the tensor-core one
 "transition_mma" and "transition_half" / "transition_half_mma" are
 csrc/transition.cu and csrc/transition_mma.cu behind `fused_transition`
 and `fused_transition_half`.
+
+`at_least_f32` is the dtype rule of every float32 statistic (cWCT, VGG
+statistics, the matting term, the training losses): bf16 and float32
+compute in float32, float64 (a reference run) stays float64.
 """
+
+import torch
+
+
+def at_least_f32(x):
+    """x in float32, or in float64 when it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _counters():

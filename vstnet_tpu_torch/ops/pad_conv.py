@@ -11,6 +11,12 @@ rounds where they round:
   * conv3's sum is returned in float32 (the caller adds it to x1 in float32
     and rounds once).
 
+The training step's differentiable path (models/revresnet.RevResNet.forward
+and .inverse) takes residual_branch_native instead, which runs every conv
+in the input's dtype, as the JAX package's conv2d_nchw does: a bf16 conv
+returns bf16 with its bias added. In float32 the two branches are the
+same computation.
+
 On a CUDA device a float32 conv here runs through cuDNN, which uses TF32
 unless `torch.backends.cudnn.allow_tf32` is False; callers that want true
 float32 clear that flag.
@@ -40,3 +46,14 @@ def residual_branch_nchw(x, weights, stride: int = 1):
     h = h.to(dt).float()
     h = reflect_conv(h, w2.float(), b2.float(), 1, relu=True).to(dt).float()
     return reflect_conv(h, w3.float(), b3.float(), 1)
+
+
+def residual_branch_native(x, weights, stride: int = 1):
+    """F(x) with every conv in x.dtype: the weights are cast to x.dtype (a
+    differentiable cast, so float32 master weights get float32 gradients)
+    and each conv's output, bias included, comes back in x.dtype."""
+    dt = x.dtype
+    (w1, b1), (w2, b2), (w3, b3) = weights
+    h = reflect_conv(x, w1.to(dt), b1.to(dt), stride, relu=True)
+    h = reflect_conv(h, w2.to(dt), b2.to(dt), 1, relu=True)
+    return reflect_conv(h, w3.to(dt), b3.to(dt), 1)
