@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
-ultra-resolution tiler, the HTTP style service and the trainer through the
-entry points a user calls, at the full width and depth of PHOTO_CONFIG and
+ultra-resolution tiler, the HTTP style service, the trainer, GGUF weights,
+the smoke CLI and the export artifacts through the entry points a user
+calls, at the full width and depth of PHOTO_CONFIG and
 SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
 1280x720 and 960x540 requests, 256x256 training crops), with random
 weights made from a seed. Phases, in
@@ -54,7 +55,7 @@ order; any failure raises and the process exits non-zero:
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
               with CUDA events.
-  7. cli      (run after phase 5; phases 7-10 before the timings) the
+  7. cli      (run after phase 5; phases 7-11 before the timings) the
               command-line entry points as a user runs them, on synthetic
               files: the video CLI on a 16-frame 1280x720 MJPEG clip,
               --batch 8, the default --max_size 1280, in bf16 global
@@ -109,6 +110,24 @@ order; any failure raises and the process exits non-zero:
               peak memory and the device's idle share of one step
               (torch.profiler) at 256x256 B=2 in both phases, float32 and
               bf16, remat on and off; 2 steps of ARTISTIC_CONFIG.
+ 11. tools    (after phase 10) GGUF: the random PHOTO_CONFIG weights
+              written at F16, Q8_0 and Q4_0 and read back to the card, each
+              through the fused bf16 stylize at 512x512 (90 K1 and 6 K2
+              launches) against the float32 weights, F16 >= 40 dB, with the
+              write and read seconds. The smoke CLI as child processes,
+              beside the export: --test all (parity, shapes at 512, 10
+              shapes, bench at 512 B=8), train (3 iterations) and photo at
+              1024x1024 under --profile, whose trace must name K1, K2, K4
+              and K5 (each by its __global__ function), with the fast
+              call's launches and the memory report; then photo alone, for
+              its times. torch.export: the five artifacts at
+              512x512 (stylize, encoder, decoder on the PHOTO_CONFIG
+              weights; segmenter, segment-render on SegFormer-B4), loaded
+              by load_exported and run on the card against the eager
+              functions: <= 1e-4, masks equal on >= 99 % of the decided
+              pixels; export and load seconds, each artifact's MB and one
+              call's measured memory, and what TF32 would cost the stylize
+              artifact.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -2616,6 +2635,277 @@ def phase_train(device, gen, smi):
     _train_timings(device, gen, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the tools (GGUF weights, the smoke CLI, torch.export artifacts)
+# ---------------------------------------------------------------------------
+
+# GGUF: the random PHOTO_CONFIG weights through F16 against the float32
+# weights, both on the fused bf16 path at 512x512 (the fused path packs its
+# weights to bf16, so F16's rounding shows only where it moves a weight's
+# bf16 rounding); Q8_0 and Q4_0 are printed, not gated
+GGUF_F16_PSNR = 40.0
+# launches of one fused stylize at 512x512 B=1: two encodes and a decode,
+# 30 K1 and 2 K2 each (half-res widths 256 and 128)
+GGUF_LAUNCHES = {"coupling": 0, "coupling_mma": 90, "transition": 0,
+                 "transition_mma": 6, "transition_half": 0,
+                 "transition_half_mma": 0, "attention": 0, "dwconv_gelu": 0}
+# the smoke photo path at 1024x1024 (fast route: bf16 segmenter, fused
+# encode and decode) launches K1, K2, K4 and K5; the profiler names each
+# by its __global__ function, templates with their arguments after it
+TRACE_KERNELS = {"K1": ("coupling_mma_kernel", "coupling_mma_narrow_kernel"),
+                 "K2": ("transition_mma_kernel",),
+                 "K4": ("attention_kernel",),
+                 "K5": ("dwconv_gelu_kernel",)}
+# torch.export artifacts at 512x512, float32, run by load_exported (TF32
+# cleared) against the eager functions on the same inputs: the same
+# operators at the same shapes, so within EXPORT_TOL; masks equal on
+# MASK_AGREE of the pixels whose best logit leads by more than EXPORT_TOL
+# of the logits' scale
+EXPORT_HW = 512
+EXPORT_TOL = 1e-4
+
+
+def _smoke(argv, log, timeout=600):
+    """python -m vstnet_tpu_torch.cli.smoke argv in a child process, from
+    the checkout; its output goes to `log` (a list of lines, printed by
+    the caller). Returns (stdout, wall seconds); raises with the output if
+    the child exits non-zero."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "vstnet_tpu_torch.cli.smoke", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    log.extend(f"  | {line}" for line in res.stdout.splitlines())
+    if res.returncode != 0:
+        raise AssertionError(f"smoke {' '.join(argv)} exited "
+                             f"{res.returncode}:\n{res.stdout[-4000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    log.append(f"smoke {' '.join(argv)}: exit 0 in {wall:.1f} s")
+    return res.stdout, wall
+
+
+def _trace_kernels(logdir):
+    """{kernel name: count} of the device kernels in the Chrome traces
+    under logdir."""
+    import collections
+    import os
+
+    counts = collections.Counter()
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    if not files:
+        raise AssertionError(f"no trace under {logdir}")
+    for name in files:
+        with open(os.path.join(logdir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        counts.update(e["name"] for e in events
+                      if e.get("cat") == "kernel")
+    return counts
+
+
+def _named(kernel, names):
+    import re
+
+    return any(re.search(rf"(^|[^A-Za-z0-9_]){n}[<(]", kernel)
+               for n in names)
+
+
+def _tools_gguf(ops, model, device, gen, total, tmp, smi):
+    import os
+
+    from vstnet_tpu_torch.io import gguf
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    content, style = _frames(gen, 1, 512, device), _frames(gen, 1, 512,
+                                                          device)
+    ref = model.stylize(content, style, fast=True).clamp(0, 1)
+    for dtype in ("f16", "q8_0", "q4_0"):
+        path = os.path.join(tmp, f"photo_{dtype}.gguf")
+        t0 = time.perf_counter()
+        gguf.revresnet_to_gguf(model.net, path, dtype)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        net = gguf.revresnet_from_gguf(path, cfg=model.cfg, device=device)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        out = StyleModel(cfg=model.cfg, net=net).stylize(content, style,
+                                                         fast=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        _add(total, counts)
+        if counts != GGUF_LAUNCHES:
+            raise AssertionError(f"gguf {dtype} stylize: launches {counts}")
+        p = _psnr(out.clamp(0, 1), ref)
+        gate = (f" (>= {GGUF_F16_PSNR})" if dtype == "f16" else
+                " (not gated)")
+        print(f"gguf {dtype}: {os.path.getsize(path) / 2**20:.2f} MB, write "
+              f"{t_write:.3f} s, read to the card {t_read:.3f} s; fused "
+              f"bf16 stylize 512x512 against the float32 weights: PSNR "
+              f"{p:.2f} dB{gate} [{smi}]")
+        if dtype == "f16" and not p >= GGUF_F16_PSNR:
+            raise AssertionError(f"gguf f16 PSNR {p}")
+
+
+def _tools_smoke(tmp, smi, log):
+    """The smoke CLI's tests in child processes: parity, shapes and bench
+    (one --test all run), train, and photo at 1024x1024 under --profile,
+    whose trace must name K1, K2, K4 and K5."""
+    import os
+
+    walls = {}
+    for argv in (["--test", "all", "--size", "512", "--n_shapes", "10",
+                  "--batch", "8"],
+                 ["--test", "train", "--iters", "3"]):
+        walls[argv[1]] = _smoke(argv, log)[1]
+    logdir = os.path.join(tmp, "trace")
+    out, wall = _smoke(["--test", "photo", "--size", "1024", "--iters", "3",
+                        "--profile", logdir], log)
+    walls["photo --profile"] = wall
+    line = [x for x in out.splitlines()
+            if "kernel launches per fast call:" in x][0]
+    per_call = json.loads(line.split(":", 1)[1])
+    t0 = time.perf_counter()
+    kernels = _trace_kernels(logdir)
+    found = {k: sum(n for name, n in kernels.items() if _named(name, names))
+             for k, names in TRACE_KERNELS.items()}
+    log.append(f"smoke photo 1024x1024 under the profiler: the fast call's "
+               f"launches {per_call}; kernel events in the trace {found} "
+               f"(read in {time.perf_counter() - t0:.1f} s) [{smi}]")
+    for k, names in TRACE_KERNELS.items():
+        log.append(f"  {k}: " + ", ".join(sorted(
+            {name[:100] for name in kernels if _named(name, names)})))
+    missing = [k for k, n in found.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels missing from the trace: {missing}")
+    return walls
+
+
+def _eager_render(seg_net, x, device, blend=0.5, min_ratio=0.02):
+    from vstnet_tpu_torch.models import remapping
+    from vstnet_tpu_torch.models.segformer import segment_mask
+
+    mapping = remapping.load_label_mapping(device=device)
+    pal = torch.from_numpy(remapping.ade20k_palette()).float().to(
+        device) / 255.0
+    m = remapping.self_remapping(segment_mask(seg_net, x), mapping,
+                                 min_ratio)
+    return (blend * pal[m.long()] + (1.0 - blend) * x).clamp(0.0, 1.0)
+
+
+def _tools_export(model, seg_net, device, gen, smi):
+    import io
+
+    from vstnet_tpu_torch.models import segformer as sf
+    from vstnet_tpu_torch.models.pipeline import stylize
+    from vstnet_tpu_torch.runtime import export as ex
+    from vstnet_tpu_torch.runtime import profiling
+
+    cfg, net, hw = model.cfg, model.net, EXPORT_HW
+    c, s = _frames(gen, 1, hw, device), _frames(gen, 1, hw, device)
+    z = net.encode(c)
+    cases = [
+        ("stylize", lambda: ex.export_stylize(net, cfg, hw, hw,
+                                              device=device), (c, s),
+         lambda: stylize(net, c, s)),
+        ("encoder", lambda: ex.export_encoder(net, cfg, hw, hw,
+                                              device=device), (c,),
+         lambda: net.encode(c)),
+        ("decoder", lambda: ex.export_decoder(net, cfg, hw, hw,
+                                              device=device), (z,),
+         lambda: net.decode(z)),
+        ("segmenter", lambda: ex.export_segmenter(seg_net, hw, hw,
+                                                  device=device), (c,),
+         lambda: sf.segment_mask(seg_net, c)),
+        ("segment-render", lambda: ex.export_segment_render(
+            seg_net, hw, hw, device=device), (c,),
+         lambda: _eager_render(seg_net, c, device)),
+    ]
+    for name, export, args, eager in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep, _ = export()
+        t_export = time.perf_counter() - t0
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        blob = buf.getvalue()
+        t_save = time.perf_counter() - t0 - t_export
+        t0 = time.perf_counter()
+        fn = ex.load_exported(blob, device=device)
+        t_load = time.perf_counter() - t0
+        got, want = fn(*args), eager()
+        if name == "segmenter":
+            logits = sf.segment_logits(seg_net, c)
+            top2 = logits.topk(2, dim=-1).values
+            scale = float(logits.abs().max())
+            decided = (top2[..., 0] - top2[..., 1]) > EXPORT_TOL * scale
+            same = got == want
+            agree = float(same[decided].float().mean())
+            detail = (f"masks equal on {agree:.5f} (>= {MASK_AGREE}) of the "
+                      f"{float(decided.float().mean()):.5f} decided pixels, "
+                      f"{float(same.float().mean()):.5f} of all")
+            ok = got.dtype == torch.int32 and agree >= MASK_AGREE
+        else:
+            err = _max_err(got, want)
+            detail = f"max abs err {err:.3e} (<= {EXPORT_TOL})"
+            ok = err <= EXPORT_TOL
+        if name == "stylize":
+            # what the TF32 that load_exported clears would cost
+            saved = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                with torch.no_grad():
+                    tf32 = ep.module()(*args)
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = saved
+            detail += (f"; run with TF32 on it would be "
+                       f"{_max_err(tf32, want):.3e} off")
+        mem = profiling.call_memory_analysis(fn, *args, device=device)
+        print(f"export {name} {hw}x{hw}: export {t_export:.2f} s, save "
+              f"{t_save:.2f} s, {len(blob) / 2**20:.1f} MB, load "
+              f"{t_load:.2f} s; one call's memory (MiB): "
+              + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in mem.items())
+              + f"; artifact on the card vs eager: {detail} [{smi}]")
+        if not ok:
+            raise AssertionError(f"export {name}: {detail}")
+
+
+def phase_tools(ops, model, seg, device, gen, total, smi):
+    """Phase 11: GGUF weights, the smoke CLI and the torch.export
+    artifacts. The smoke CLI's child processes run beside the export,
+    which traces on the host; its photo test runs once more alone after,
+    for its times."""
+    import concurrent.futures
+    import tempfile
+
+    t0 = time.perf_counter()
+    log = []
+    with tempfile.TemporaryDirectory(prefix="vstnet_tools_") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        _tools_gguf(ops, model, device, gen, total, tmp, smi)
+        t_gguf = time.perf_counter() - t0
+        smoke = pool.submit(_tools_smoke, tmp, smi, log)
+        try:
+            _tools_export(model, seg.net, device, gen, smi)
+        finally:
+            t_export = time.perf_counter() - t0 - t_gguf
+            walls = smoke.result()
+            print("\n".join(log))
+        log.clear()
+        walls["photo"] = _smoke(["--test", "photo", "--size", "1024",
+                                 "--iters", "3"], log)[1]
+        print("\n".join(log))
+    wall = time.perf_counter() - t0
+    print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, export "
+          f"{t_export:.1f} beside the smoke runs, smoke runs "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -2654,6 +2944,8 @@ def main():
     print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     phase_train(device, gen, smi)
     print(f"phase train done at {time.perf_counter() - t0:.1f} s")
+    phase_tools(ops, model, seg, device, gen, total, smi)
+    print(f"phase tools done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -2670,7 +2962,9 @@ def main():
           "bf16 batches and 1 float32 batch at 512x512 and 1 float32 batch "
           "at 640x360, masked 2 batches, seg 256 and 640x360 one each, "
           "phase 7's CLI runs and photo_pipeline, phase 8's fused tiled "
-          "runs at 3840x2160, phase 9's fused service); ms, plain_ms, "
+          "runs at 3840x2160, phase 9's fused service, phase 11's three "
+          "GGUF stylizes; the smoke CLI's child processes count their "
+          "own); ms, plain_ms, "
           "bound_ms and library_ms are sums over the launches of one "
           "encode at B=8 (coupling_mma 30 "
           "and transition_mma 2 in bf16 at 512x512, transition_half_mma 2 "

@@ -61,19 +61,28 @@ def label_counts(seg, num_classes: int = NUM_CLASSES):
     flat = seg.reshape(-1).long()
     inside = (flat >= 0) & (flat < num_classes)
     flat = torch.where(inside, flat, torch.full_like(flat, num_classes))
-    return torch.bincount(flat, minlength=num_classes + 1)[:num_classes]
+    return _count(flat, num_classes + 1)[:num_classes]
+
+
+def _count(flat, length: int):
+    """Occurrences of each value of an int64 vector with values in [0,
+    length): torch.bincount with a fixed output length, so that the shape
+    does not depend on the data (torch.export); exact integer sums."""
+    return torch.zeros(length, dtype=torch.int64,
+                       device=flat.device).scatter_add_(
+                           0, flat, torch.ones_like(flat))
 
 
 def _frame_counts(seg):
-    """seg (B, H, W) -> (B, NUM_CLASSES) per-frame counts, one bincount."""
+    """seg (B, H, W) -> (B, NUM_CLASSES) per-frame counts, one count over
+    all frames."""
     b = seg.shape[0]
     flat = seg.reshape(b, -1).long()
     inside = (flat >= 0) & (flat < NUM_CLASSES)
     flat = torch.where(inside, flat, torch.full_like(flat, NUM_CLASSES))
     flat = flat + (NUM_CLASSES + 1) * torch.arange(
         b, device=seg.device)[:, None]
-    counts = torch.bincount(flat.reshape(-1),
-                            minlength=b * (NUM_CLASSES + 1))
+    counts = _count(flat.reshape(-1), b * (NUM_CLASSES + 1))
     return counts.reshape(b, NUM_CLASSES + 1)[:, :NUM_CLASSES]
 
 
