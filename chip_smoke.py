@@ -25,7 +25,11 @@ order; any failure raises and the process exits non-zero:
               the SegFormer shapes, one ragged shape and one with M = 4096,
               K5 depthwise conv + GELU at the four MixFFN shapes of 512x512
               and of 1024x1024 frames and at one ragged shape, each printed
-              with whether it equals its plain version bit for bit.
+              with whether it equals its plain version bit for bit; then
+              in bf16 at the shapes of the later phases' paths: the tiler
+              (B=4) and the service (B=8), the smoke CLI's photo test
+              (1024x1024 at B=2: K1, K2, K4 on the model's views, K5) and
+              phase 11's GGUF stylizes (512x512 at B=1: K1, K2).
   4. global   StyleModel.random_init -> style factors from one 512x512
               style image -> make_fused_video_fn(out_u8=True) on 2 batches
               of 4 frames in bf16 (K1 and K2 on the tensor cores) and one in
@@ -54,7 +58,10 @@ order; any failure raises and the process exits non-zero:
               as a yardstick; SegFormer-B4 alone (CUDA events, and one call
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
-              with CUDA events.
+              with CUDA events; the remap's label counts (scatter_add_)
+              against torch.bincount; for the record, outside the kernels
+              line, K1-K5 at the tiler's, the smoke CLI's photo test's and
+              the service's shapes.
   7. cli      (run after phase 5; phases 7-11 before the timings) the
               command-line entry points as a user runs them, on synthetic
               files: the video CLI on a 16-frame 1280x720 MJPEG clip,
@@ -113,14 +120,15 @@ order; any failure raises and the process exits non-zero:
  11. tools    (after phase 10) GGUF: the random PHOTO_CONFIG weights
               written at F16, Q8_0 and Q4_0 and read back to the card, each
               through the fused bf16 stylize at 512x512 (90 K1 and 6 K2
-              launches) against the float32 weights, F16 >= 40 dB, with the
-              write and read seconds. The smoke CLI as child processes,
-              beside the export: --test all (parity, shapes at 512, 10
+              launches) against the float32 weights, F16 >= 40 dB and every
+              F16 weight equal to its original rounded to float16, with the
+              write and read seconds. The smoke CLI as child processes, one
+              after another: --test all (parity, shapes at 512, 10
               shapes, bench at 512 B=8), train (3 iterations) and photo at
               1024x1024 under --profile, whose trace must name K1, K2, K4
               and K5 (each by its __global__ function), with the fast
-              call's launches and the memory report; then photo alone, for
-              its times. torch.export: the five artifacts at
+              call's launches, the trace's kernels by time and the memory
+              report. torch.export: the five artifacts at
               512x512 (stylize, encoder, decoder on the PHOTO_CONFIG
               weights; segmenter, segment-render on SegFormer-B4), loaded
               by load_exported and run on the card against the eager
@@ -237,6 +245,17 @@ TILE_B = 4
 TILE_K1 = [("tile s1", 16, 1024, 1024), ("tile s2", 64, 512, 512),
            ("tile s3", 256, 256, 256)]
 TILE_K2 = [("tile T1", 16, 1024, 1024), ("tile T2", 64, 512, 512)]
+# the smoke CLI's photo test at 1024x1024 encodes and segments the content
+# and the style as one batch of 2: K1 and K2 at the tiler's shapes at B=2,
+# K4 in the model's layout (q a (B, N, heads, 64) view of the q
+# projection, k and v views of one (B, M, 2, heads, 64) kv projection):
+# stage 1 with 1 head (G=2), stage 2 with 2 heads (G=4); K5 at the
+# 1024x1024 shapes at B=2. Phase 11's GGUF stylizes encode content and
+# style apart at 512x512: K1 and K2 at B=1
+SMOKE_B = 2
+SMOKE_K4 = [("smoke 1024 s1", 1, 65536, 1024), ("smoke 1024 s2", 2, 16384,
+                                                1024)]
+GGUF_B = 1
 SERVE_B = 8
 BUCKET_K2 = [("bucket 1280x768 T1", 16, 768, 1280)]
 BUCKET_K3 = [("bucket 960x576 T1", 16, 576, 960),
@@ -538,19 +557,23 @@ def phase_kernels(cf, att, dw, device, gen):
         return (torch.randn((b, c, h, w), generator=dgen, device=device,
                             dtype=bf) for _ in range(2))
 
-    for name, c, h, w in TILE_K1:
+    k1 = ([(k, TILE_B) for k in TILE_K1] + [(k, SMOKE_B) for k in TILE_K1]
+          + [(k[:4], GGUF_B) for k in K1_SHAPES[:3]])
+    for (name, c, h, w), b in k1:
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
-        x1, x2 = streams(TILE_B, c, h, w)
+        x1, x2 = streams(b, c, h, w)
         for inv in (False, True):
             got = cf.fused_coupling(x1, x2, wp, inverse=inv)
             ref = cf.coupling_block_plain(x1, x2, wp, inverse=inv)
             torch.cuda.synchronize()
-            _check(f"K1 {name} C={c} {h}x{w} B={TILE_B} bf16 mma "
+            _check(f"K1 {name} C={c} {h}x{w} B={b} bf16 mma "
                    f"{'inv' if inv else 'fwd'}", got, ref, _bf16_tol(ref),
                    worst, "coupling_mma")
-        _k1_bf16_round_trip(cf, f"K1 {name} C={c} B={TILE_B}", x1, x2, wp)
+        _k1_bf16_round_trip(cf, f"K1 {name} C={c} B={b}", x1, x2, wp)
     for (name, c, h, w), b in ([(k, TILE_B) for k in TILE_K2]
+                               + [(k, SMOKE_B) for k in TILE_K2]
+                               + [(k[:4], GGUF_B) for k in K2_SHAPES]
                                + [(k, SERVE_B) for k in BUCKET_K2
                                   + BUCKET_K3]):
         wp = cf.pack_transition_weights(
@@ -566,8 +589,22 @@ def phase_kernels(cf, att, dw, device, gen):
         torch.cuda.synchronize()
         _check(f"K4 {name} G={g} N={n} M={m} bf16", got, ref, _bf16_tol(ref),
                worst, "attention")
+    for name, heads, n, m in SMOKE_K4:
+        d = att.HEAD_DIM
+        q = torch.randn((SMOKE_B, n, heads * d), generator=dgen,
+                        device=device, dtype=bf).view(SMOKE_B, n, heads, d)
+        kv = torch.randn((SMOKE_B, m, 2 * heads * d), generator=dgen,
+                         device=device, dtype=bf).view(SMOKE_B, m, 2, heads,
+                                                       d)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        got = att.sr_attention(q, k, v, 0.125)
+        ref = att.sr_attention_plain(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        _check(f"K4 {name} G={SMOKE_B * heads} N={n} M={m} bf16 (B="
+               f"{SMOKE_B}, {heads} head(s), the model's views)", got, ref,
+               _bf16_tol(ref), worst, "attention")
     k5 = ([(2,) + k[:4] for k in K5_SHAPES] + [(1,) + k for k in K5_BIG]
-          + [(3,) + K5_RAGGED])
+          + [(SMOKE_B,) + k for k in K5_BIG] + [(3,) + K5_RAGGED])
     for b, name, c, h, w in k5:
         x = torch.randn((b, h, w, c), generator=gen).to(device, bf)
         taps = (torch.randn((3, 3, c), generator=gen) / 3).to(device)
@@ -1054,18 +1091,22 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
             print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: "
                   f"forward K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; "
                   f"inverse K2 {i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
-    # the tiler's and the service's shapes, bf16
-    for name, c, h, w in TILE_K1:
+    # the tiler's, the smoke CLI's photo test's and the service's shapes,
+    # bf16
+    for (name, c, h, w), b in ([(k, TILE_B) for k in TILE_K1]
+                               + [(k, SMOKE_B) for k in TILE_K1]):
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
-        x1, x2 = (torch.randn((TILE_B, c, h, w), generator=gen).to(device, bf)
+        x1, x2 = (torch.randn((b, c, h, w), generator=gen).to(device, bf)
                   for _ in range(2))
         tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
                             lambda: cf.coupling_block_plain(x1, x2, wp),
                             iters=5)
-        _line("coupling_mma", name, f"C={c} {h}x{w} B={TILE_B}", tk, tp,
-              bound_coupling(TILE_B, c, h, w))
+        _line("coupling_mma", name, f"C={c} {h}x{w} B={b}", tk, tp,
+              bound_coupling(b, c, h, w))
     for (name, c, h, w), b, half in ([(k, TILE_B, False) for k in TILE_K2]
+                                     + [(k, SMOKE_B, False)
+                                        for k in TILE_K2]
                                      + [(k, SERVE_B, True)
                                         for k in BUCKET_K3]):
         wp = cf.pack_transition_weights(
@@ -1097,11 +1138,29 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         _line("attention", name, f"G={g} N={n} M={m}", tk, tp, bound, lib)
         if name == "512 s1":
             tally("attention", count, tk, tp, bound, lib)
+    # the smoke CLI's photo test: B=2 in the model's layout (as phase 3)
+    for name, heads, n, m in SMOKE_K4:
+        q = torch.randn((SMOKE_B, n, heads * 64), generator=gen).to(
+            device, bf).view(SMOKE_B, n, heads, 64)
+        kv = torch.randn((SMOKE_B, m, 2 * heads * 64), generator=gen).to(
+            device, bf).view(SMOKE_B, m, 2, heads, 64)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        tk, tp = _time_pair(lambda: att.sr_attention(q, k, v, 0.125),
+                            lambda: att.sr_attention_plain(q, k, v, 0.125))
+        lib = _time_ms(lambda: torch.nn.functional.
+                       scaled_dot_product_attention(
+                           q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), scale=0.125))
+        _line("attention", name, f"G={SMOKE_B * heads} N={n} M={m} (B="
+              f"{SMOKE_B}, {heads} head(s))", tk, tp,
+              bound_attention(SMOKE_B * heads, n, m), lib)
     # K5 by graph replay; eagerly too, and cuDNN's bf16 channels_last
     # depthwise conv with bias, then F.gelu: a yardstick of two calls that
     # the port never makes (no single call computes K5: library_ms is None)
     for b, name, c, h, w, count in ([(batch,) + k for k in K5_SHAPES]
-                                    + [(1,) + k + (0,) for k in K5_BIG]):
+                                    + [(1,) + k + (0,) for k in K5_BIG]
+                                    + [(SMOKE_B,) + k + (0,)
+                                       for k in K5_BIG]):
         x = torch.randn((b, h, w, c), generator=gen).to(device, bf)
         taps = (torch.randn((3, 3, c), generator=gen) / 3).to(device)
         bias = (torch.randn((c,), generator=gen) * 0.1).to(device)
@@ -1183,6 +1242,7 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
         make_fused_video_fn,
         make_masked_fused_video_fn,
     )
+    from vstnet_tpu_torch.models import remapping
     from vstnet_tpu_torch.models.remapping import video_remap
 
     cfg = PHOTO_CONFIG
@@ -1243,6 +1303,19 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
     print("time masked program stages 512x512 bf16 B=%d: %s (sum %.2f ms)" % (
         batch, ", ".join(f"{k} {v:.2f} ms ({100 * v / whole:.1f} %)"
                          for k, v in times.items()), whole))
+    # the remap's per-frame label counts: the fixed-length scatter_add_
+    # that torch.export needs, against the torch.bincount it replaced
+    n = remapping.NUM_CLASSES + 1
+    flat = (cm_raw.reshape(batch, -1).long() + n * torch.arange(
+        batch, device=device)[:, None]).reshape(-1)
+    ms, ms_b = _time_pair(lambda: remapping._count(flat, batch * n),
+                          lambda: torch.bincount(flat, minlength=batch * n))
+    same = torch.equal(remapping._count(flat, batch * n),
+                       torch.bincount(flat, minlength=batch * n))
+    print(f"time remap label counts 512x512 B={batch}: scatter_add_ "
+          f"{ms:.4f} ms, torch.bincount {ms_b:.4f} ms, equal {same}")
+    if not same:
+        raise AssertionError("remap counts differ from torch.bincount")
 
     # peak memory of the regional cWCT at the largest capacity bucket used
     # for video (K = 32): the style statistics padded with absent labels
@@ -2642,7 +2715,10 @@ def phase_train(device, gen, smi):
 # GGUF: the random PHOTO_CONFIG weights through F16 against the float32
 # weights, both on the fused bf16 path at 512x512 (the fused path packs its
 # weights to bf16, so F16's rounding shows only where it moves a weight's
-# bf16 rounding); Q8_0 and Q4_0 are printed, not gated
+# bf16 rounding); Q8_0 and Q4_0 are printed, not gated. The PSNR alone
+# cannot tell F16 from a quantized file (Q4_0 comes within 6 dB of it), so
+# every F16 weight read back to the card must also equal its float32
+# original rounded to float16, bit for bit
 GGUF_F16_PSNR = 40.0
 # launches of one fused stylize at 512x512 B=1: two encodes and a decode,
 # 30 K1 and 2 K2 each (half-res widths 256 and 128)
@@ -2665,11 +2741,10 @@ EXPORT_HW = 512
 EXPORT_TOL = 1e-4
 
 
-def _smoke(argv, log, timeout=600):
+def _smoke(argv, timeout=600):
     """python -m vstnet_tpu_torch.cli.smoke argv in a child process, from
-    the checkout; its output goes to `log` (a list of lines, printed by
-    the caller). Returns (stdout, wall seconds); raises with the output if
-    the child exits non-zero."""
+    the checkout, its output printed. Returns (stdout, wall seconds);
+    raises with the output if the child exits non-zero."""
     import os
 
     t0 = time.perf_counter()
@@ -2678,31 +2753,13 @@ def _smoke(argv, log, timeout=600):
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=timeout)
     wall = time.perf_counter() - t0
-    log.extend(f"  | {line}" for line in res.stdout.splitlines())
+    print("\n".join(f"  | {line}" for line in res.stdout.splitlines()))
     if res.returncode != 0:
         raise AssertionError(f"smoke {' '.join(argv)} exited "
                              f"{res.returncode}:\n{res.stdout[-4000:]}\n"
                              f"{res.stderr[-4000:]}")
-    log.append(f"smoke {' '.join(argv)}: exit 0 in {wall:.1f} s")
+    print(f"smoke {' '.join(argv)}: exit 0 in {wall:.1f} s")
     return res.stdout, wall
-
-
-def _trace_kernels(logdir):
-    """{kernel name: count} of the device kernels in the Chrome traces
-    under logdir."""
-    import collections
-    import os
-
-    counts = collections.Counter()
-    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
-    if not files:
-        raise AssertionError(f"no trace under {logdir}")
-    for name in files:
-        with open(os.path.join(logdir, name)) as f:
-            events = json.load(f)["traceEvents"]
-        counts.update(e["name"] for e in events
-                      if e.get("cat") == "kernel")
-    return counts
 
 
 def _named(kernel, names):
@@ -2730,6 +2787,15 @@ def _tools_gguf(ops, model, device, gen, total, tmp, smi):
         net = gguf.revresnet_from_gguf(path, cfg=model.cfg, device=device)
         torch.cuda.synchronize()
         t_read = time.perf_counter() - t0
+        if dtype == "f16":
+            sd, orig = net.state_dict(), model.net.state_dict()
+            off = [k for k, v in orig.items()
+                   if not torch.equal(sd[k], v.half().float())]
+            print(f"gguf f16: {len(orig) - len(off)} of {len(orig)} weights "
+                  f"on the card equal their float32 originals rounded to "
+                  f"float16, bit for bit")
+            if off or sd.keys() != orig.keys():
+                raise AssertionError(f"gguf f16 weights differ: {off[:5]}")
         ops.reset_launch_counts()
         out = StyleModel(cfg=model.cfg, net=net).stylize(content, style,
                                                          fast=True)
@@ -2749,33 +2815,34 @@ def _tools_gguf(ops, model, device, gen, total, tmp, smi):
             raise AssertionError(f"gguf f16 PSNR {p}")
 
 
-def _tools_smoke(tmp, smi, log):
-    """The smoke CLI's tests in child processes: parity, shapes and bench
-    (one --test all run), train, and photo at 1024x1024 under --profile,
-    whose trace must name K1, K2, K4 and K5."""
+def _tools_smoke(tmp, smi):
+    """The smoke CLI's tests in child processes, one after another:
+    parity, shapes and bench (one --test all run), train, and photo at
+    1024x1024 under --profile, whose trace must name K1, K2, K4 and K5.
+    Returns each run's wall seconds."""
     import os
+
+    from vstnet_tpu_torch.runtime import profiling
 
     walls = {}
     for argv in (["--test", "all", "--size", "512", "--n_shapes", "10",
                   "--batch", "8"],
                  ["--test", "train", "--iters", "3"]):
-        walls[argv[1]] = _smoke(argv, log)[1]
+        walls[argv[1]] = _smoke(argv)[1]
     logdir = os.path.join(tmp, "trace")
-    out, wall = _smoke(["--test", "photo", "--size", "1024", "--iters", "3",
-                        "--profile", logdir], log)
-    walls["photo --profile"] = wall
+    out, walls["photo --profile"] = _smoke(
+        ["--test", "photo", "--size", "1024", "--iters", "3", "--profile",
+         logdir])
     line = [x for x in out.splitlines()
             if "kernel launches per fast call:" in x][0]
     per_call = json.loads(line.split(":", 1)[1])
-    t0 = time.perf_counter()
-    kernels = _trace_kernels(logdir)
+    kernels = profiling.kernel_counts(logdir)
     found = {k: sum(n for name, n in kernels.items() if _named(name, names))
              for k, names in TRACE_KERNELS.items()}
-    log.append(f"smoke photo 1024x1024 under the profiler: the fast call's "
-               f"launches {per_call}; kernel events in the trace {found} "
-               f"(read in {time.perf_counter() - t0:.1f} s) [{smi}]")
+    print(f"smoke photo 1024x1024 under the profiler: the fast call's "
+          f"launches {per_call}; kernel events in the trace {found} [{smi}]")
     for k, names in TRACE_KERNELS.items():
-        log.append(f"  {k}: " + ", ".join(sorted(
+        print(f"  {k}: " + ", ".join(sorted(
             {name[:100] for name in kernels if _named(name, names)})))
     missing = [k for k, n in found.items() if n == 0]
     if missing:
@@ -2877,33 +2944,21 @@ def _tools_export(model, seg_net, device, gen, smi):
 
 def phase_tools(ops, model, seg, device, gen, total, smi):
     """Phase 11: GGUF weights, the smoke CLI and the torch.export
-    artifacts. The smoke CLI's child processes run beside the export,
-    which traces on the host; its photo test runs once more alone after,
-    for its times."""
-    import concurrent.futures
+    artifacts, one after another."""
     import tempfile
 
     t0 = time.perf_counter()
-    log = []
-    with tempfile.TemporaryDirectory(prefix="vstnet_tools_") as tmp, \
-            concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with tempfile.TemporaryDirectory(prefix="vstnet_tools_") as tmp:
         _tools_gguf(ops, model, device, gen, total, tmp, smi)
         t_gguf = time.perf_counter() - t0
-        smoke = pool.submit(_tools_smoke, tmp, smi, log)
-        try:
-            _tools_export(model, seg.net, device, gen, smi)
-        finally:
-            t_export = time.perf_counter() - t0 - t_gguf
-            walls = smoke.result()
-            print("\n".join(log))
-        log.clear()
-        walls["photo"] = _smoke(["--test", "photo", "--size", "1024",
-                                 "--iters", "3"], log)[1]
-        print("\n".join(log))
+        walls = _tools_smoke(tmp, smi)
+    t_smoke = time.perf_counter() - t0 - t_gguf
+    _tools_export(model, seg.net, device, gen, smi)
     wall = time.perf_counter() - t0
-    print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, export "
-          f"{t_export:.1f} beside the smoke runs, smoke runs "
-          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+    print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, smoke runs "
+          f"{t_smoke:.1f}: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in walls.items())
+          + f"; export {wall - t_gguf - t_smoke:.1f})")
 
 
 def main():

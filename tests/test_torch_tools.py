@@ -39,6 +39,33 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert any("conv" in str(e.get("name", "")) for e in events)
 
 
+def test_trace_reader_counts_kernels_and_the_idle_share(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "void vst::k<16>(int)",
+         "ts": 100, "dur": 10},
+        {"ph": "X", "cat": "kernel", "name": "void vst::k<16>(int)",
+         "ts": 105, "dur": 10},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 130,
+         "dur": 10},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "ts": 0,
+         "dur": 500},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 120},
+    ]
+    with open(tmp_path / "a.pt.trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+    assert profiling.kernel_counts(str(tmp_path)) == {
+        "void vst::k<16>(int)": 2}
+    # window 100-140 us, busy 15 + 10 us of it
+    summary = profiling.summarize_trace(str(tmp_path), top=1)
+    assert ("3 device events, window 0.040 ms, busy 0.025 ms, idle 37.5 %"
+            in summary)
+    assert "void vst::k<16>(int)" in summary and "Memcpy" not in summary
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError):
+        profiling.kernel_counts(str(empty))
+
+
 def test_memory_reports_on_the_cpu():
     assert profiling.device_memory_stats("cpu") is None
     assert profiling.call_memory_analysis(torch.ones, 4, device="cpu") is None
@@ -65,6 +92,7 @@ def test_smoke_runs_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert "full photo pipeline @64^2 fast" in out
     assert "kernel launches per fast call: {}" in out    # plain versions
     assert f"profile trace written to {logdir}" in out
+    assert "no device events" in out
     assert len(_trace_files(logdir)) == 1
 
     smoke.main(["--test", "train", "--size", "32", "--iters", "1",

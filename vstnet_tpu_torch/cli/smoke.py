@@ -23,8 +23,9 @@ Counterpart of vstnet_tpu/cli/smoke.py, with the same tests and flags plus
              models/RevResNet.py and its per-sample cWCT under DIR.
 
 --test all runs parity, shapes and bench. --profile LOGDIR captures a
-torch.profiler trace of the run (runtime/profiling.trace) and prints the
-device's memory at exit. The process clears TF32, as the port's other
+torch.profiler trace of the run (runtime/profiling.trace) and prints at
+exit the trace's device kernels by total time with the device's idle share
+(runtime/profiling.summarize_trace), and the device's memory. The process clears TF32, as the port's other
 CLIs do, so its float32 routes are true float32. Times on a card are the
 card's; with --device cpu they are the CPU's.
 """
@@ -290,8 +291,9 @@ def build_parser():
     p.add_argument("--n_shapes", type=int, default=10)
     p.add_argument("--profile", metavar="LOGDIR", default=None,
                    help="capture a torch.profiler trace of the run under "
-                        "LOGDIR (Chrome/TensorBoard format) and print the "
-                        "device's memory at exit")
+                        "LOGDIR (Chrome/TensorBoard format) and print its "
+                        "device kernels by time and the device's memory at "
+                        "exit")
     p.add_argument("--reference", metavar="DIR", default=None,
                    help="parity: also hold the port against the upstream "
                         "models/RevResNet.py and models/cWCT.py under DIR "
@@ -320,7 +322,11 @@ def main(argv=None):
         raise SystemExit(f"smoke: --reference {args.reference}: no such "
                          "directory")
     from vstnet_tpu_torch.device import resolve_device
-    from vstnet_tpu_torch.runtime.profiling import format_memory_report, trace
+    from vstnet_tpu_torch.runtime.profiling import (
+        format_memory_report,
+        summarize_trace,
+        trace,
+    )
 
     device = resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = False
@@ -332,6 +338,8 @@ def main(argv=None):
         _run_tests(args, device)
     if args.profile:
         print(f"profile trace written to {args.profile}")
+        print("device time in the trace (kernels by total time):")
+        print(summarize_trace(args.profile, top=10))
         print("device memory:")
         print(format_memory_report(device=device))
 

@@ -7,6 +7,10 @@ Counterpart of vstnet_tpu/runtime/profiling.py:
     trace (`*.pt.trace.json`, viewable in Perfetto or TensorBoard). CUPTI
     records every kernel by its CUDA name, the port's own kernels (launched
     through ctypes) included.
+  * `kernel_counts(logdir)` and `summarize_trace(logdir)`: the reader of
+    those traces: the device kernels by name, and by total time beside the
+    device's busy and idle share of the window from its first to its last
+    device event.
   * `device_memory_stats()`: live numbers of the CUDA caching allocator
     under the JAX package's keys; None on the CPU.
   * `call_memory_analysis(fn, *args)`: the memory of one call. PyTorch has
@@ -18,9 +22,11 @@ Counterpart of vstnet_tpu/runtime/profiling.py:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -40,6 +46,73 @@ def trace(logdir: str):
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(
                      logdir)):
         yield
+
+
+# the trace's categories of work on the device
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_files(logdir: str) -> List[str]:
+    """The Chrome traces under `logdir`, sorted; raises if there are
+    none."""
+    files = sorted(os.path.join(logdir, f) for f in os.listdir(logdir)
+                   if f.endswith(".json"))
+    if not files:
+        raise FileNotFoundError(f"no trace under {logdir}")
+    return files
+
+
+def device_events(path: str) -> List[dict]:
+    """The complete ("X") device events of one Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") in DEVICE_EVENT_CATS and e.get("ph") == "X"]
+
+
+def kernel_counts(logdir: str) -> collections.Counter:
+    """{kernel name: launches} over the traces under `logdir`."""
+    return collections.Counter(
+        e["name"] for path in trace_files(logdir)
+        for e in device_events(path) if e["cat"] == "kernel")
+
+
+def _busy_us(events) -> float:
+    """Microseconds covered by the union of the events' intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def summarize_trace(logdir: str, top: int = 20) -> str:
+    """Each trace under `logdir`: its device events' window, busy time and
+    idle share, and the `top` kernels (and copies) by total time."""
+    lines = []
+    for path in trace_files(logdir):
+        events = device_events(path)
+        name = os.path.basename(path)
+        if not events:
+            lines.append(f"  {name}: no device events")
+            continue
+        by_name = collections.defaultdict(lambda: [0, 0.0])
+        for e in events:
+            by_name[e["name"]][0] += 1
+            by_name[e["name"]][1] += e["dur"]
+        window = (max(e["ts"] + e["dur"] for e in events)
+                  - min(e["ts"] for e in events))
+        busy = _busy_us(events)
+        total = sum(d for _, d in by_name.values())
+        lines.append(f"  {name}: {len(events)} device events, window "
+                     f"{window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle "
+                     f"{100 * (1 - busy / window):.1f} %")
+        for kname, (n, dur) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][1])[:top]:
+            lines.append(f"    {dur / 1e3:10.3f} ms {100 * dur / total:5.1f} "
+                         f"% {n:6d}x  {kname[:110]}")
+    return "\n".join(lines)
 
 
 def _cuda(device) -> Optional[torch.device]:
