@@ -2,8 +2,8 @@
 
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
 ultra-resolution tiler, the HTTP style service, the trainer, GGUF weights,
-the smoke CLI and the export artifacts through the entry points a user
-calls, at the full width and depth of PHOTO_CONFIG and
+the smoke CLI, the export artifacts and the data-parallel layer through
+the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
 SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
 1280x720 and 960x540 requests, 256x256 training crops), with random
 weights made from a seed. Phases, in
@@ -136,6 +136,25 @@ order; any failure raises and the process exits non-zero:
               pixels; export and load seconds, each artifact's MB and one
               call's measured memory, and what TF32 would cost the stylize
               artifact.
+ 12. parallel (after phase 11) the data-parallel layer over every card, or
+              over two replicas on cuda:0 where the host has one card (a
+              line then says that NCCL between cards was not exercised):
+              parallel_stylize_fused (global and alpha_c 0.5) and
+              parallel_stylize_masked_fused at 512x512, 8 frames a
+              replica, each shard equal bit for bit to the single-device
+              program on it, the batch >= 40 dB against float32, each
+              device's K1-K5 launches equal to one call's times its
+              replicas, frames/s over the replicas (CUDA events on each
+              device) beside one device's; max(2, cards) training ranks
+              (NCCL across cards, gloo over CUDA tensors when they share
+              one) for 3 steps (image, image, temporal) at 256x256, 2
+              images a rank, PHOTO_CONFIG float32, weights bit-equal
+              across ranks and within the stated bound of the
+              single-process steps on the global batch, steps/s; the video
+              CLI over the devices on 16 frames of 1280x720 (K2 and K3)
+              and a service burst of 16 requests, each frame and reply
+              within one uint8 level of the single-device run, with
+              per-device launches.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -2961,6 +2980,463 @@ def phase_tools(ops, model, seg, device, gen, total, smi):
           + f"; export {wall - t_gguf - t_smoke:.1f})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the data-parallel layer (parallel/)
+# ---------------------------------------------------------------------------
+
+# frames a replica of the three programs at 512x512; alpha_c of the
+# interpolated one
+PAR_BATCH = 8
+PAR_ALPHA = 0.5
+# the data-parallel training run: the checked steps (image, image,
+# temporal), then image steps timed once the first calls are paid; crop,
+# images a rank
+PAR_STEPS = (False, False, True)
+PAR_TIMED = 4
+PAR_CROP = 256
+PAR_PER_RANK = 2
+# rank 0's float32 weights after the checked steps against the
+# single-process steps on the global batch: max abs beyond 1e-4 of the
+# weight, and mean abs. Adam's first steps move an element by up to lr
+# (1e-4) whatever the size of its gradient, so where the sum order flips
+# the sign of a near-zero gradient the two runs part by up to 2 lr a step:
+# 6e-4 over 3 steps. The first run on an H100 80GB HBM3 at 700 W measured
+# 2.154e-04 and a mean of 5.033e-07 (PERF.md); the mean bound is
+# tests/test_parallel.py's for its three-step sequence.
+PAR_TRAIN_RTOL, PAR_TRAIN_ATOL, PAR_TRAIN_MEAN = 1e-4, 6e-4, 1e-5
+
+
+def _par_devices():
+    """(devices, whether they are distinct cards): every card when the
+    host shows two or more, else two replicas on cuda:0."""
+    from vstnet_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(), True
+    return (torch.device("cuda:0"),) * 2, False
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _per_device(devices, counts_of, one):
+    """Each device's launches (counts_of(device)) against `one` single-
+    device call's times the replicas that device holds."""
+    for d in dict.fromkeys(devices):
+        reps = devices.count(d)
+        want = {k: v * reps for k, v in _nonzero(one).items()}
+        got = _nonzero(counts_of(d))
+        if got != want:
+            raise AssertionError(f"{d}: launches {got}, want {want} "
+                                 f"({reps} replicas of {one})")
+
+
+def _host_syncs(fn):
+    """Where fn() makes the host wait for a device (torch.cuda's sync
+    debug mode warns at each such call): {file:line: calls}."""
+    import collections
+    import os
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+        if "synchroniz" in str(w.message)))
+
+
+def _par_ms(fn, devices, iters):
+    """ms of one fn() over the devices: CUDA events on each device's
+    stream around `iters` calls, the longest of them; and the host's ms to
+    enqueue one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+    ev = {}
+    for d in dict.fromkeys(devices):
+        with torch.cuda.device(d):
+            ev[d] = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            ev[d][0].record()
+    for _ in range(iters):
+        fn()
+    for d, (s, e) in ev.items():
+        with torch.cuda.device(d):
+            e.record()
+    for s, e in ev.values():
+        e.synchronize()
+    return max(s.elapsed_time(e) for s, e in ev.values()) / iters, enqueue
+
+
+def _par_programs(ops, model, style, seg, region, plan, devices, gen, total,
+                  smi):
+    """The global, alpha_c and masked programs over the devices at
+    512x512, PAR_BATCH frames a replica: per-device launches, each shard
+    against the single-device program on it, the whole batch against
+    float32, frames/s over the replicas beside one device's."""
+    from vstnet_tpu_torch import PHOTO_CONFIG
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models import revresnet_fast as rf
+    from vstnet_tpu_torch.models.pipeline import (
+        make_fused_video_fn,
+        make_masked_fused_video_fn,
+        prepare_masked_style,
+    )
+    from vstnet_tpu_torch.parallel import (
+        gather,
+        parallel_stylize_fused,
+        parallel_stylize_masked_fused,
+        replicate,
+        shard_batch,
+    )
+
+    cfg = PHOTO_CONFIG
+    n = len(devices)
+    fast = model.fast_params
+    frames = _frames(gen, PAR_BATCH * n, 512, devices[0])
+    zs = rf.encode_fast(fast, style.to(torch.bfloat16), cfg,
+                        packed_latent=True)
+    ls, mu = cwct.style_factors_packed(zs, cfg.latent_channels)
+    smask = prepare_masked_style(fast, seg, style, cfg)[2]
+    shards = shard_batch(devices, frames)
+    masked_args = (fast, seg.net, seg.label_mapping, region, plan)
+    # (name, the parallel program, the single-device one, its arguments
+    # around the frames, the frames' position, the float32 reference of
+    # the whole batch given its masks)
+    progs = [
+        ("global", parallel_stylize_fused(devices, cfg),
+         make_fused_video_fn(cfg), lambda x: (fast, x, ls, mu), 1,
+         lambda masks: _plain_video(model, frames, style)),
+        ("alpha_c", parallel_stylize_fused(devices, cfg, interp=True),
+         make_fused_video_fn(cfg, interp=True),
+         lambda x: (fast, x, ls, mu, PAR_ALPHA), 1,
+         lambda masks: _plain_video(model, frames, style, PAR_ALPHA)),
+        ("masked", parallel_stylize_masked_fused(devices, cfg),
+         make_masked_fused_video_fn(cfg),
+         lambda x: (fast, seg.net, seg.label_mapping, region, plan, x), 5,
+         lambda masks: _plain_masked(model, style, smask, frames, masks)),
+    ]
+    for name, par, local, args_of, pos, plain in progs:
+        par(*args_of(frames))      # replicas made, first calls paid
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = par(*args_of(frames))
+        torch.cuda.synchronize()
+        per_dev = {d: ops.launch_counts(d) for d in dict.fromkeys(devices)}
+        _add(total, ops.launch_counts())
+        masks = None
+        if isinstance(out, tuple):
+            out, masks = out
+        # each shard against the single-device program on that shard, on
+        # the shard's device, at the same batch
+        one = None
+        for i, d in enumerate(devices):
+            args = [x if j == pos else replicate(devices, x)[i]
+                    for j, x in enumerate(args_of(shards[i]))]
+            with torch.cuda.device(d):
+                ops.reset_launch_counts()
+                ref = local(*args)
+                torch.cuda.synchronize(d)
+            if one is None:
+                one = ops.launch_counts(d)
+            ref, ref_m = ref if masks is not None else (ref, None)
+            if not torch.equal(out[i], ref) or (
+                    masks is not None and not torch.equal(masks[i], ref_m)):
+                raise AssertionError(f"parallel {name}: shard {i} on {d} "
+                                     "differs from the single-device "
+                                     "program on it")
+        _per_device(devices, lambda d: per_dev[d], one)
+        db = _psnr(gather(out, devices[0]), plain(
+            None if masks is None else gather(masks, devices[0])))
+        if db < 40.0:
+            raise AssertionError(f"parallel {name}: {db:.2f} dB against "
+                                 "float32 (< 40)")
+        iters = 3 if name == "masked" else 5
+        syncs = _host_syncs(lambda: par(*args_of(frames)))
+        torch.cuda.synchronize()
+        ms_all, enq = _par_ms(lambda: par(*args_of(frames)), devices, iters)
+        ms_one = _time_ms(lambda: local(*args_of(shards[0])), iters=iters,
+                          warmup=1)
+        fps_all = PAR_BATCH * n * 1e3 / ms_all
+        fps_one = PAR_BATCH * 1e3 / ms_one
+        print(f"parallel {name} 512x512 bf16, {PAR_BATCH} frames x {n} "
+              f"replicas: every shard equal to the single-device program "
+              f"bit for bit, the batch {db:.2f} dB against float32 (>= "
+              f"40), launches per device "
+              + "; ".join(f"{d}: {_nonzero(c)}" for d, c in per_dev.items())
+              + f" (= {_nonzero(one)} x replicas); {fps_all:.2f} frames/s "
+              f"over the "
+              f"replicas ({ms_all:.2f} ms a batch of {PAR_BATCH * n}; the "
+              f"host enqueues it in {enq:.2f} ms; calls that wait for the "
+              f"device: {syncs or 'none'}) beside {fps_one:.2f} on one "
+              f"device ({ms_one:.2f} ms a batch of {PAR_BATCH}) [{smi}]")
+
+
+def _par_train_rank(rank, root, tc):
+    """One rank of the phase's training run (spawned): its rows of the
+    global batch, parallel_train_step, its weights and step times saved."""
+    import torch.distributed as dist
+
+    from vstnet_tpu_torch.config import PHOTO_CONFIG
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.parallel import parallel_train_step
+    from vstnet_tpu_torch.train import trainer as tr
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    rows = slice(rank * PAR_PER_RANK, (rank + 1) * PAR_PER_RANK)
+    batches = [tuple(t[rows].to(device) for t in b) for b in
+               torch.load(f"{root}/batches.pt", weights_only=True)]
+    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
+    net.init_weights(torch.Generator().manual_seed(0))
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    state = tr.init_train_state(tc, device, net)
+    auxes = []
+    for (a, s, flow, noise), temporal in zip(batches, PAR_STEPS):
+        aux = parallel_train_step(state, vgg, a, s, tc, flow, noise,
+                                  temporal)
+        auxes.append({k: float(v) for k, v in aux.items()})
+    params = {k: v.cpu() for k, v in state.net.state_dict().items()}
+    ms = _timed_steps(lambda: parallel_train_step(state, vgg,
+                                                  *batches[0][:2], tc))
+    torch.save({"params": params, "aux": auxes, "ms": ms,
+                "backend": dist.get_backend(), "device": str(device)},
+               f"{root}/rank{rank}.pt")
+
+
+def _timed_steps(step):
+    """Host ms of PAR_TIMED calls of step(), each ended by a synchronise
+    (a data-parallel step already waits on its all-reduce)."""
+    ms = []
+    for _ in range(PAR_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _par_train(gen, smi):
+    """max(2, cards) ranks for PAR_STEPS at PAR_CROP, PAR_PER_RANK images a
+    rank, PHOTO_CONFIG float32: weights bit-equal across ranks and against
+    the single-process steps on the global batch; steps/s."""
+    import tempfile
+
+    from vstnet_tpu_torch.config import PHOTO_CONFIG
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.parallel.multihost import spawn_ranks
+    from vstnet_tpu_torch.train import trainer as tr
+
+    world = max(2, torch.cuda.device_count())
+    tc = tr.TrainConfig()
+    device = torch.device("cuda:0")
+    batches = [tuple(t.contiguous().cpu() for t in _train_batch(
+        gen, PAR_PER_RANK * world, PAR_CROP, device)) for _ in PAR_STEPS]
+    with tempfile.TemporaryDirectory(prefix="vstnet_par_") as root:
+        torch.save(batches, f"{root}/batches.pt")
+        t0 = time.perf_counter()
+        backend = spawn_ranks(_par_train_rank, world, (root, tc))
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{root}/rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    for r in ranks[1:]:
+        for k, v in ranks[0]["params"].items():
+            if not torch.equal(v, r["params"][k]):
+                raise AssertionError(f"parallel train: {k} differs between "
+                                     f"rank 0 and {r['device']}")
+    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
+    net.init_weights(torch.Generator().manual_seed(0))
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    state = tr.init_train_state(tc, device, net)
+    batches = [tuple(t.to(device) for t in b) for b in batches]
+    with tr._no_tf32():
+        for (a, s, flow, noise), temporal in zip(batches, PAR_STEPS):
+            aux = tr.train_step(state, vgg, a, s, tc, flow, noise,
+                                temporal)
+        want = torch.cat([v.flatten().cpu()
+                          for v in state.net.state_dict().values()])
+        ms_one = _timed_steps(lambda: tr.train_step(state, vgg,
+                                                    *batches[0][:2], tc))
+    got = torch.cat([v.flatten() for v in ranks[0]["params"].values()])
+    diff = (got.double() - want.double()).abs()
+    excess = float((diff - PAR_TRAIN_RTOL * want.double().abs()).max())
+    mean = float(diff.mean())
+    aux_err = max(abs(ranks[0]["aux"][-1][k] - float(aux[k])) for k in aux)
+    print(f"parallel train: {world} ranks ({backend}"
+          + (", NCCL across cards" if backend == "nccl" else
+             ", the ranks share one card: no NCCL between cards")
+          + f") x {PAR_PER_RANK} images at {PAR_CROP}x{PAR_CROP}, "
+          f"PHOTO_CONFIG float32, {len(PAR_STEPS)} steps (image, image, "
+          f"temporal); weights bit-equal across ranks; against the "
+          f"single-process steps on the global batch of "
+          f"{PAR_PER_RANK * world}: max |diff| {float(diff.max()):.3e} "
+          f"(beyond rtol {PAR_TRAIN_RTOL}: {excess:.3e} <= atol "
+          f"{PAR_TRAIN_ATOL}), mean |diff| {mean:.3e} (< {PAR_TRAIN_MEAN}),"
+          f" last step's aux {aux_err:.3e} off")
+    ms = ranks[0]["ms"]
+    print(f"parallel train image step ms after the checked steps, rank 0: "
+          f"{', '.join(f'{m:.1f}' for m in ms)} = "
+          f"{len(ms) * 1e3 / sum(ms):.3f} steps/s (a global batch of "
+          f"{PAR_PER_RANK * world}); one process on the global batch: "
+          f"{', '.join(f'{m:.1f}' for m in ms_one)} = "
+          f"{len(ms_one) * 1e3 / sum(ms_one):.3f} steps/s; spawn to join "
+          f"{wall:.1f} s [{smi}]")
+    if excess > PAR_TRAIN_ATOL or mean > PAR_TRAIN_MEAN:
+        raise AssertionError("parallel train: rank 0's weights beyond the "
+                             "bound of the single-process steps")
+
+
+def _par_cli(ops, devices, gen, total, smi):
+    """The video CLI over the devices (make_mesh as it sees them) and on
+    cuda:0 alone, on 16 frames of 1280x720: per-device launches, frames
+    within one uint8 level."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from vstnet_tpu_torch.cli import video_transfer
+    from vstnet_tpu_torch.io.video import AviWriter
+    from vstnet_tpu_torch.parallel import mesh
+
+    n, h, w = CLI_CLIP
+    with tempfile.TemporaryDirectory(prefix="vstnet_par_cli_") as root:
+        clip = (_frames(gen, n, (h, w), devices[0]) * 255).round().to(
+            torch.uint8).cpu().numpy()
+        with AviWriter(f"{root}/clip.avi", fps=10) as wr:
+            for f in clip:
+                wr.write(f)
+        Image.fromarray((_frames(gen, 1, ULTRA_STYLE, devices[0])[0] * 255)
+                        .round().to(torch.uint8).cpu().numpy()).save(
+            f"{root}/style.png")
+        argv = ["--video", f"{root}/clip.avi", "--style",
+                f"{root}/style.png", "--batch", str(CLI_BATCH)]
+        written, walls = {}, {}
+        saved = mesh.make_mesh
+        mesh.make_mesh = lambda *a, **k: devices
+        try:
+            for tag, extra in (("devices", []),
+                               ("one", ["--device", str(devices[0])])):
+                with _CliProbe(ops) as probe:
+                    ops.reset_launch_counts()
+                    _, out, walls[tag] = _run_cli(
+                        video_transfer.main,
+                        argv + ["--out_dir", f"{root}/{tag}"] + extra)
+                    if tag == "devices":
+                        per_dev = {d: ops.launch_counts(d)
+                                   for d in dict.fromkeys(devices)}
+                    _add(total, ops.launch_counts())
+                written[tag] = np.stack(next(iter(probe.frames.values())))
+        finally:
+            mesh.make_mesh = saved
+    batches = -(-n // (CLI_BATCH * len(devices)))
+    _per_device(devices, lambda d: per_dev[d], {
+        k: v * batches for k, v in CLI_PER_BATCH["1280x720"].items()})
+    a, b = (written[k].astype(np.int32) for k in ("devices", "one"))
+    if a.shape != (n, h, w, 3) or a.shape != b.shape:
+        raise AssertionError(f"parallel CLI: {a.shape} frames written, want "
+                             f"{(n, h, w, 3)} like {b.shape}")
+    worst = int(np.abs(a - b).max())
+    if worst > 1:
+        raise AssertionError(f"parallel CLI: frames {worst} levels from "
+                             "the single-device run")
+    print(f"parallel video CLI 1280x720 x {n}, --batch {CLI_BATCH} over "
+          f"{len(devices)} replicas: launches per device "
+          + "; ".join(f"{d}: {_nonzero(c)}" for d, c in per_dev.items())
+          + f"; frames {worst} levels from the single-device run (<= 1; "
+          f"bit-equal {worst == 0}); main() {walls['devices']:.2f} s beside "
+          f"{walls['one']:.2f} s on one device [{smi}]")
+
+
+def _par_serve(ops, model, devices, gen, total, smi):
+    """A burst of 16 requests at 1280x720 through StyleService over the
+    devices and on cuda:0 alone: per-device launches, replies within one
+    uint8 level."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from vstnet_tpu_torch.serve import StyleService
+
+    n, h, w = SERVE_BURST[0]
+    style = _png((_frames(gen, 1, ULTRA_STYLE, devices[0])[0] * 255)
+                 .round().to(torch.uint8).cpu().numpy())
+    contents = [_png(f) for f in (_frames(gen, n, (h, w), devices[0]) * 255)
+                .round().to(torch.uint8).cpu().numpy()]
+    replies, walls = {}, {}
+    for tag, devs in (("devices", devices), ("one", devices[:1])):
+        svc = StyleService(model, fast=True, devices=devs)
+        try:
+            svc.register_style("s", style)
+            svc.stylize(contents[0], "s")       # the first batch's set-up
+            ops.reset_launch_counts()
+            log0 = len(svc.batch_log)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=n) as pool:
+                got = list(pool.map(lambda c: svc.stylize(c, "s"),
+                                    contents))
+            walls[tag] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if tag == "devices":
+                per_dev = {d: ops.launch_counts(d)
+                           for d in dict.fromkeys(devices)}
+                n_batches = len(svc.batch_log) - log0
+            _add(total, ops.launch_counts())
+        finally:
+            svc.close(timeout=60)
+        replies[tag] = [np.asarray(Image.open(io.BytesIO(r))).astype(
+            np.int32) for r in got]
+    _per_device(devices, lambda d: per_dev[d], {
+        k: v * n_batches for k, v in SERVE_PER_BATCH[(768, 1280)].items()})
+    worst = max(int(np.abs(a - b).max())
+                for a, b in zip(replies["devices"], replies["one"]))
+    if worst > 1:
+        raise AssertionError(f"parallel serve: replies {worst} levels from "
+                             "the single-device service")
+    print(f"parallel serve: {n} requests at {w}x{h} over {len(devices)} "
+          f"replicas in {n_batches} batches, launches per device "
+          + "; ".join(f"{d}: {_nonzero(c)}" for d, c in per_dev.items())
+          + f"; replies {worst} levels from the single-device service (<= "
+          f"1; bit-equal {worst == 0}); burst {walls['devices']:.2f} s "
+          f"beside {walls['one']:.2f} s on one device [{smi}]")
+
+
+def phase_parallel(ops, model, style, seg, region, plan, gen, total, smi):
+    """Phase 12: the data-parallel layer over every card, or two replicas
+    on one card where the host has one."""
+    devices, distinct = _par_devices()
+    print(f"parallel: devices {', '.join(map(str, devices))}"
+          + ("" if distinct else "; one card on this host: two replicas "
+             "on it, and NCCL between cards is not exercised"))
+    t0 = time.perf_counter()
+    _par_programs(ops, model, style, seg, region, plan, devices, gen, total,
+                  smi)
+    t1 = time.perf_counter()
+    _par_train(gen, smi)
+    t2 = time.perf_counter()
+    _par_cli(ops, devices, gen, total, smi)
+    _par_serve(ops, model, devices, gen, total, smi)
+    print(f"phase parallel: {time.perf_counter() - t0:.1f} s (programs "
+          f"{t1 - t0:.1f}, train {t2 - t1:.1f}, CLI and serve "
+          f"{time.perf_counter() - t2:.1f})")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -3001,6 +3477,8 @@ def main():
     print(f"phase train done at {time.perf_counter() - t0:.1f} s")
     phase_tools(ops, model, seg, device, gen, total, smi)
     print(f"phase tools done at {time.perf_counter() - t0:.1f} s")
+    phase_parallel(ops, model, style, seg, region, plan, gen, total, smi)
+    print(f"phase parallel done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -3018,8 +3496,9 @@ def main():
           "at 640x360, masked 2 batches, seg 256 and 640x360 one each, "
           "phase 7's CLI runs and photo_pipeline, phase 8's fused tiled "
           "runs at 3840x2160, phase 9's fused service, phase 11's three "
-          "GGUF stylizes; the smoke CLI's child processes count their "
-          "own); ms, plain_ms, "
+          "GGUF stylizes, phase 12's parallel programs, CLI and service; "
+          "the smoke CLI's child processes count their own); ms, "
+          "plain_ms, "
           "bound_ms and library_ms are sums over the launches of one "
           "encode at B=8 (coupling_mma 30 "
           "and transition_mma 2 in bf16 at 512x512, transition_half_mma 2 "

@@ -499,3 +499,90 @@ def _latent(b, h, w, c):
     x = rng.standard_normal((b, h * w, c)) @ mix.T
     return (x + rng.standard_normal((1, 1, c))).reshape(b, h, w, c).astype(
         np.float32)
+
+
+def test_segmenter_replica_runs_k5_on_a_second_card(dev):
+    """A Segmenter replicated to cuda:1 (parallel/sharding.replicate) lays
+    out its bf16 twin and K5 taps there and launches K5 there; its masks
+    equal those of the original on cuda:0."""
+    from vstnet_tpu_torch.models import segformer as sf
+    from vstnet_tpu_torch.parallel import replicate
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    second = torch.device("cuda:1")
+    seg = sf.Segmenter.load(None, depths=(1, 1, 1, 1), seed=3, device=dev)
+    x = torch.rand((2, 128, 128, 3),
+                   generator=torch.Generator().manual_seed(1)).to(dev)
+    want = sf.segment_mask(seg.net, x, half=True)
+    _, rep = replicate((dev, second), seg)
+    before = dw.dwconv3x3_bias_gelu.device_launches[("launches", 1)]
+    got = sf.segment_mask(rep.net, x.to(second), half=True)
+    assert dw.dwconv3x3_bias_gelu.device_launches[("launches", 1)] \
+        == before + 4
+    for m in rep.net.half_copy().modules():
+        if isinstance(m, sf.MixFFN):
+            assert m.taps.device == second
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_fused_program_over_two_replicas_on_one_card(dev):
+    """parallel_stylize_fused over two replicas on cuda:0: every shard
+    equals the single-device program on it, bit for bit, and the launches
+    are twice one call's."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models.pipeline import make_fused_video_fn
+    from vstnet_tpu_torch import ops
+    from vstnet_tpu_torch.parallel import gather, parallel_stylize_fused
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    fast = rf.pack_revresnet(net, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    frames = torch.rand((4, 64, 128, 3), generator=g).to(dev)
+    style = torch.rand((1, 64, 64, 3), generator=g).to(dev)
+    zs = rf.encode_fast(fast, style.to(torch.bfloat16), cfg,
+                        packed_latent=True)
+    ls, mu = cwct.style_factors_packed(zs, cfg.latent_channels)
+    one = make_fused_video_fn(cfg, out_u8=True)
+    ops.reset_launch_counts()
+    ref = [one(fast, frames[i:i + 2], ls, mu) for i in (0, 2)]
+    single = ops.launch_counts(dev)
+    ops.reset_launch_counts()
+    shards = parallel_stylize_fused((dev, dev), cfg, out_u8=True)(
+        fast, frames, ls, mu)
+    assert ops.launch_counts(dev) == single
+    assert sum(single.values()) > 0
+    for s, r in zip(shards, ref):
+        assert torch.equal(s, r)
+    assert gather(shards).shape == (4, 64, 128, 3)
+
+
+@pytest.mark.parametrize("interp", [False, True], ids=["global", "alpha_c"])
+def test_video_program_enqueues_without_waiting_for_the_card(dev, interp):
+    """The global and alpha_c video programs never make the host wait for
+    the device (torch.cuda's sync debug mode raises at such a call): a
+    sharded call enqueues every card's shard before the first is done."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models.pipeline import make_fused_video_fn
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    fast = rf.pack_revresnet(net, torch.bfloat16)
+    frames = torch.rand((2, 64, 64, 3),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    zs = rf.encode_fast(fast, frames[:1].to(torch.bfloat16), cfg,
+                        packed_latent=True)
+    ls, mu = cwct.style_factors_packed(zs, cfg.latent_channels)
+    fn = make_fused_video_fn(cfg, out_u8=True, interp=interp)
+    extra = (0.5,) if interp else ()
+    fn(fast, frames, ls, mu, *extra)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(fast, frames, ls, mu, *extra)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

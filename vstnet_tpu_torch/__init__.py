@@ -32,6 +32,11 @@ inference entry point builds no autograd graph) trains new weights. The
 command-line entry points are `vstnet_tpu_torch.cli.image_transfer`
 (tiling above --ultra_threshold), `vstnet_tpu_torch.cli.video_transfer`,
 `vstnet_tpu_torch.cli.serve` and `vstnet_tpu_torch.cli.train`.
+
+Several cards: `parallel` splits a batch of frames into one shard per card
+against replicated weights (the video CLI without --device and the service
+run on every visible card), and trains one process per card over
+torch.distributed (`train(data_parallel=...)`, or torchrun).
 """
 
 __version__ = "0.1.0"

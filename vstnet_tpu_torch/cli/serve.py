@@ -1,7 +1,9 @@
 """HTTP stylization service of the PyTorch port (vstnet_tpu_torch/serve.py).
 
 Counterpart of vstnet_tpu/cli/serve.py, with its flags and one more,
---device (default: the CUDA card; `--device cpu` runs on the CPU):
+--device. Without it the service keeps a replica on every visible CUDA
+card, as the JAX service runs over its mesh; `--device cuda:k` or
+`--device cpu` keeps one device:
 
     python -m vstnet_tpu_torch.cli.serve --ckpoint model.pt --port 8790 --fast
     curl -X PUT  --data-binary @style.jpg localhost:8790/styles/wave
@@ -33,8 +35,8 @@ def build_parser():
     p.add_argument("--batch_window_ms", type=float, default=5.0,
                    help="how long a request waits for batch-mates")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA card; 'cpu' runs "
-                        "on the CPU)")
+                   help="torch device (default: every visible CUDA card; "
+                        "'cuda:k' or 'cpu' runs on that one)")
     return p
 
 
@@ -66,11 +68,14 @@ def main(argv=None):
     service = StyleService(model, fast=args.fast, grid=args.grid,
                            max_size=args.max_size,
                            max_batch=args.max_batch,
-                           batch_window_ms=args.batch_window_ms)
+                           batch_window_ms=args.batch_window_ms,
+                           devices=None if args.device is None
+                           else (device,))
     httpd = serve(service, host=args.host, port=args.port)
     print(f"vstnet-torch-serve: {args.mode} "
           f"({'fused bf16' if args.fast else 'f32'}) on "
-          f"{service.device_name()} at http://{args.host}:{args.port}")
+          f"{len(service.devices)} x {service.device_name()} at "
+          f"http://{args.host}:{args.port}")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -2,9 +2,20 @@
 
 The JAX CLI's flags (vstnet_tpu/cli/train.py), with --log_every (the
 trainer's log interval) and --device (default: the CUDA card; `--device
-cpu` trains on the CPU). One device: --data_parallel auto and off train on
-it, on needs more than one and is not ported. Without --vgg_ckpoint's file
-the loss network takes seeded random weights (a smoke run).
+cpu` trains on the CPU). Without --vgg_ckpoint's file the loss network
+takes seeded random weights (a smoke run).
+
+Several cards: --data_parallel auto (the default) with several visible
+cards starts one rank per card itself; under torchrun each process is a
+rank on cuda:LOCAL_RANK,
+
+    torchrun --nproc_per_node N -m vstnet_tpu_torch.cli.train \
+        --data_parallel on --train_content D1 --train_style D2
+
+and the JAX package's VSTNET_COORDINATOR, VSTNET_NUM_PROCESSES and
+VSTNET_PROCESS_ID describe a group as well (parallel/multihost.py). Each
+rank loads --batch_size images a step; rank 0 writes the logs and
+checkpoints. --data_parallel on needs several devices; off trains on one.
 """
 
 from __future__ import annotations
@@ -64,8 +75,9 @@ def build_parser():
                    help="cap the steps of this run (smoke runs)")
     p.add_argument("--data_parallel", choices=["auto", "on", "off"],
                    default="auto",
-                   help="auto and off train on one device; on (several "
-                        "devices) is not ported")
+                   help="auto: data-parallel over every visible card, "
+                        "or over the ranks of a torchrun group; on: the "
+                        "same, and fails on one device; off: one device")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "on the CPU)")
@@ -80,12 +92,17 @@ def main(argv=None):
 
     from vstnet_tpu_torch.device import resolve_device
     from vstnet_tpu_torch.models.vgg import init_vgg, load_vgg
+    from vstnet_tpu_torch.parallel.multihost import init_distributed
     from vstnet_tpu_torch.train.losses import LossWeights
     from vstnet_tpu_torch.train.trainer import TrainConfig, train
 
     if args.win_rad != 1:
         raise SystemExit("error: only --win_rad 1 is supported (the on-device "
                          "matting Laplacian is specialized to 3x3 windows)")
+    # a torchrun (or VSTNET_*) group first: it makes each rank's card the
+    # current device, which resolve_device then picks
+    if args.data_parallel != "off":
+        init_distributed(backend="gloo" if args.device == "cpu" else None)
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:

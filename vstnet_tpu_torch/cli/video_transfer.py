@@ -1,7 +1,11 @@
-"""Video style transfer CLI of the PyTorch port, on one device.
+"""Video style transfer CLI of the PyTorch port.
 
 Counterpart of vstnet_tpu/cli/video_transfer.py, with its flags and one
-more, --device (default: the CUDA card; `--device cpu` runs on the CPU):
+more, --device. Without it the CLI runs on every visible CUDA card, as the
+JAX CLI runs on every device: each batch is --batch frames a card, split
+into contiguous shards, one replica of the route's program on each card
+(parallel/sharding.py), and the uint8 frames come back shard by shard in
+frame order. `--device cuda:k` or `--device cpu` runs on that one device:
 
     python -m vstnet_tpu_torch.cli.video_transfer \
         --video data/content/04.avi --style data/style/04.jpg \
@@ -15,17 +19,20 @@ last frame, so every batch has one shape), packed to uint8 on the device,
 and read back into pinned memory while the next batches run: two batches
 stay in flight, and the writers encode on threads of their own.
 
-Routes, chosen by --precision alone:
+Routes, chosen by --precision alone, each through its data-parallel
+form (one device is the mesh of one):
   * bf16, global: make_fused_video_fn(out_u8=True) against the style's
-    factors;
+    factors (parallel_stylize_fused);
   * bf16, --alpha_c: the same program with interp=True, against the
     style's packed factors, alpha_c a run-time value;
   * bf16, --auto_seg: prepare_masked_style once, then
-    make_masked_fused_video_fn per batch; --seg_size -1 picks the
-    segmenter's input size on the first frame (segformer.pick_seg_size);
-  * f32: the standard path (RevResNet encode and decode), global,
-    interpolated (cwct.interpolation) or masked (segment, self- and
-    cross-remap, cwct.transfer_masked), in float32.
+    make_masked_fused_video_fn per batch (parallel_stylize_masked_fused);
+    --seg_size -1 picks the segmenter's input size on the first frame
+    (segformer.pick_seg_size);
+  * f32: the standard path (RevResNet encode and decode), global
+    (parallel_stylize_factored), interpolated (cwct.interpolation) or
+    masked (segment, self- and cross-remap, cwct.transfer_masked), in
+    float32 (the last two through map_shards).
 On a CUDA device the bf16 routes run the hand-written kernels; on the CPU
 their plain versions. Output: <video>_<style>.mp4 with cv2, else an MJPEG
 .avi; with --auto_seg also the label and colour videos of the content
@@ -57,7 +64,8 @@ def build_parser():
     p.add_argument("--alpha_c", type=float, default=None)
     p.add_argument("--fps", type=int, default=10)
     p.add_argument("--batch", type=int, default=8,
-                   help="frames per device step")
+                   help="frames per device step (the batch is this times "
+                        "the number of devices)")
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["bf16", "f32"],
                    help="bf16 runs the fused kernel path (>= 40 dB vs "
@@ -75,20 +83,22 @@ def build_parser():
                         "largest downscale whose masks agree with "
                         "frame-size masks on the first frame)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA card; 'cpu' runs "
-                        "on the CPU)")
+                   help="torch device (default: every visible CUDA card; "
+                        "'cuda:k' or 'cpu' runs on that one)")
     return p
 
 
 @torch.no_grad()
-def _style_setup(args, model, style, first, h, w):
-    """The per-video state of the chosen route, made once, and the function
-    that stylizes one batch of frames (B, h, w, 3) in [0,1]:
-    batch -> (uint8 frames, content masks or None)."""
+def _style_setup(args, model, style, first, h, w, devices):
+    """The per-video state of the chosen route, made once on the first
+    device, and the function that stylizes one batch of frames, given as
+    one (b, h, w, 3) shard in [0,1] per device: shards -> (uint8 frame
+    shards, content mask shards or None)."""
     from vstnet_tpu_torch.models import cwct
     from vstnet_tpu_torch.models import pipeline as pl
     from vstnet_tpu_torch.models import revresnet_fast as rf
     from vstnet_tpu_torch.ops.resize import resize_bilinear
+    from vstnet_tpu_torch.parallel import sharding as ps
 
     cfg = model.cfg
     net = model.net
@@ -114,21 +124,22 @@ def _style_setup(args, model, style, first, h, w):
                       "(mask-agreement gate on the first frame)")
             region, plan, _ = pl.prepare_masked_style(
                 fast, seg, style, cfg, args.min_ratio)
-            fn = pl.make_masked_fused_video_fn(
-                cfg, min_ratio=args.min_ratio, out_u8=True,
+            fn = ps.parallel_stylize_masked_fused(
+                devices, cfg, min_ratio=args.min_ratio, out_u8=True,
                 seg_hw=seg_hw_for(h, w, seg_size))
-            return lambda x: fn(fast, seg.net, seg.label_mapping, region,
-                                plan, x)
+            return lambda xs: fn(fast, seg.net, seg.label_mapping, region,
+                                 plan, xs)
         if args.alpha_c is not None:
             zp_s = rf.encode_fast(fast, style.to(fast["dtype"]), cfg,
                                   packed_latent=True)
             ls_p, mu_p = cwct.style_factors_packed(zp_s,
                                                    cfg.latent_channels)
-            fn = pl.make_fused_video_fn(cfg, out_u8=True, interp=True)
-            return lambda x: (fn(fast, x, ls_p, mu_p, args.alpha_c), None)
+            fn = ps.parallel_stylize_fused(devices, cfg, out_u8=True,
+                                           interp=True)
+            return lambda xs: (fn(fast, xs, ls_p, mu_p, args.alpha_c), None)
         ls, mu_s = cwct.style_factors(net.encode(style))
-        fn = pl.make_fused_video_fn(cfg, out_u8=True)
-        return lambda x: (fn(fast, x, ls, mu_s), None)
+        fn = ps.parallel_stylize_fused(devices, cfg, out_u8=True)
+        return lambda xs: (fn(fast, xs, ls, mu_s), None)
 
     z_s = net.encode(style)
     if args.auto_seg:
@@ -145,32 +156,36 @@ def _style_setup(args, model, style, first, h, w):
                                args.min_ratio)
 
         @torch.no_grad()
-        def masked(x):
+        def masked(net, seg_net, mapping, smask, z_s, x):
             b = x.shape[0]
-            cm = self_remapping(segment_mask(seg.net, x), seg.label_mapping,
+            cm = self_remapping(segment_mask(seg_net, x), mapping,
                                 args.min_ratio)
             sm_b = smask.expand(b, *smask.shape[-2:])
-            cm = cross_remapping(cm, sm_b, seg.label_mapping)
+            cm = cross_remapping(cm, sm_b, mapping)
             z_c = net.encode(x)
             z_ss = z_s.expand(b, *z_s.shape[1:])
             z_cs = cwct.transfer_masked(
                 z_c, z_ss, pl._mask_to_latent(cm, z_c.shape),
                 pl._mask_to_latent(sm_b, z_ss.shape))
             return pl._pack_frames(net.decode(z_cs), True), cm
-        return masked
+
+        fn = ps.map_shards(devices, masked, sharded=(5,))
+        return lambda xs: fn(net, seg.net, seg.label_mapping, smask, z_s, xs)
+
+    if args.alpha_c is not None:
+        @torch.no_grad()
+        def interp(net, z_s, x):
+            z_cs = cwct.interpolation(net.encode(x), z_s[None], [1.0],
+                                      alpha_c=float(args.alpha_c))
+            return pl._pack_frames(net.decode(z_cs), True)
+
+        fn = ps.map_shards(devices, interp, sharded=(2,))
+        return lambda xs: (fn(net, z_s, xs), None)
 
     ls, mu_s = cwct.style_factors(z_s)
-
-    @torch.no_grad()
-    def standard(x):
-        z_c = net.encode(x)
-        if args.alpha_c is not None:
-            z_cs = cwct.interpolation(z_c, z_s[None], [1.0],
-                                      alpha_c=float(args.alpha_c))
-        else:
-            z_cs = cwct.transfer_with_factors(z_c, ls, mu_s)
-        return pl._pack_frames(net.decode(z_cs), True), None
-    return standard
+    fn = ps.parallel_stylize_factored(devices, cfg)
+    return lambda xs: ([pl._pack_frames(o, True)
+                        for o in fn(net, xs, ls, mu_s)], None)
 
 
 def main(argv=None):
@@ -188,11 +203,15 @@ def main(argv=None):
     )
     from vstnet_tpu_torch.models.pipeline import StyleModel
     from vstnet_tpu_torch.ops.resize import resize_bilinear
+    from vstnet_tpu_torch.parallel import map_shards
+    from vstnet_tpu_torch.parallel.mesh import make_mesh
 
     try:
-        device = resolve_device(args.device)
+        devices = (make_mesh() if args.device is None
+                   else (resolve_device(args.device),))
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc} (the flag: --device cpu)")
+    device = devices[0]
     # float32 routes stay float32 on the card: no TF32 in cuDNN's convs
     # or in matmuls, for this process
     torch.backends.cudnn.allow_tf32 = False
@@ -204,7 +223,10 @@ def main(argv=None):
         print("WARNING: no --ckpoint given; using random weights (smoke mode)")
         model = StyleModel.random_init(mode=args.mode, device=device)
     cfg = model.cfg
-    batch = args.batch
+    batch = args.batch * len(devices)
+    if len(devices) > 1:
+        print(f"data-parallel over {len(devices)} devices "
+              f"({', '.join(map(str, devices))}), {batch} frames a batch")
 
     frames_iter, _, _ = read_frames(args.video)
     # decode-ahead thread, bounded at two batches of decoded frames
@@ -218,7 +240,7 @@ def main(argv=None):
     style = device_put_image(
         load_image(args.style, args.max_size, cfg.down_scale, as_uint8=True),
         device)
-    stylize_batch = _style_setup(args, model, style, first, h, w)
+    stylize_batch = _style_setup(args, model, style, first, h, w, devices)
 
     vname = os.path.splitext(os.path.basename(args.video))[0]
     sname = os.path.splitext(os.path.basename(args.style))[0]
@@ -246,34 +268,46 @@ def main(argv=None):
         writers.append(None)
 
     on_card = device.type == "cuda"
+    # the uint8 batch is split on the host, each shard uploaded to its
+    # device and scaled and resized there
+    prep = map_shards(devices, lambda x: resize_bilinear(
+        x.float() / 255.0, h, w), sharded=(0,))
 
     def upload(batch_np):
         x = torch.from_numpy(np.stack(batch_np))
         if on_card:
             x = x.pin_memory()
-        x = x.to(device, non_blocking=True)
-        return resize_bilinear(x.float() / 255.0, h, w)
+        return prep(x)
 
-    def readback(t):
-        if t is None:
+    def readback(shards):
+        """The shards, in order, into one host batch (pinned, filled
+        asynchronously on the card)."""
+        if shards is None:
             return None
         if not on_card:
-            return t.cpu()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return host.copy_(t, non_blocking=True)
+            return torch.cat([t.cpu() for t in shards])
+        per = shards[0].shape[0]
+        host = torch.empty((per * len(shards), *shards[0].shape[1:]),
+                           dtype=shards[0].dtype, pin_memory=True)
+        for i, t in enumerate(shards):
+            host[i * per:(i + 1) * per].copy_(t, non_blocking=True)
+        return host
 
     def flush(batch_np):
         """Launch one batch; its results come back into pinned host memory
-        behind an event, so the host goes on to the next batch."""
+        behind one event a device, so the host goes on to the next
+        batch."""
         n = len(batch_np)
         batch_np = batch_np + [batch_np[-1]] * (batch - n)
         out, cm = stylize_batch(upload(batch_np))
         out, cm = readback(out), readback(cm)
-        event = None
+        events = []
         if on_card:
-            event = torch.cuda.Event()
-            event.record()
-        return out, cm, n, event
+            for d in dict.fromkeys(devices):
+                with torch.cuda.device(d):
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        return out, cm, n, events
 
     def frame_stream():
         yield first
@@ -317,8 +351,8 @@ def main(argv=None):
 def _drain(item, writers, palette):
     """Wait for one batch's readback and hand its n valid frames (and
     masks) to the writers."""
-    out, cm, n, event = item
-    if event is not None:
+    out, cm, n, events = item
+    for event in events:
         event.synchronize()
     arr = out.numpy()
     cm = None if cm is None else cm.numpy()

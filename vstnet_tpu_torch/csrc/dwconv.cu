@@ -49,6 +49,8 @@
 // SM, a prefetched tensor map.
 #include <cuda.h>
 
+#include <atomic>
+
 #include "common.cuh"
 #include "conv_mma.cuh"
 
@@ -306,9 +308,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled's address is one for the process, whatever the
+// device: it is looked up once, and C++ initialises a function-local static
+// once even when two host threads make the first launch together.
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
@@ -318,9 +322,38 @@ inline EncodeTiled encode_tiled() {
     cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
                             &q);
 #endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
   return fn;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The blocks the current device holds at once, for kernel instance TW. The
+// count belongs to a device, so it is kept per device ordinal, in an atomic
+// slot that is 0 until the device's first launch computes it; two threads
+// that compute it together store the same value.
+template <int TW>
+cudaError_t resident_blocks(int* out) {
+  static std::atomic<int> resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int r = resident[dev].load(std::memory_order_relaxed);
+  if (r == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dwconv_gelu_kernel<TW>, DwCfg<TW>::kThreads, 0);
+    if (e != cudaSuccess) return e;
+    r = sms * (per_sm > 0 ? per_sm : 1);
+    resident[dev].store(r, std::memory_order_relaxed);
+  }
+  *out = r;
+  return cudaSuccess;
 }
 
 template <int TW>
@@ -332,18 +365,9 @@ int launch_dwconv(const void* x, const void* w, const void* bias, void* out,
   const int tiles_y = (H + kDwRows - 1) / kDwRows;
   const long long tiles = (long long)B * tiles_y * tiles_x * slabs;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, dwconv_gelu_kernel<TW>, Cfg::kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  int resident = 0;
+  const cudaError_t e = resident_blocks<TW>(&resident);
+  if (e != cudaSuccess) return (int)e;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   // NHWC as a 4-d tensor, channels innermost; the box is one staged tile

@@ -129,7 +129,10 @@ def _transfer(x, ls, mu_s, eps, alpha_c=None, use_double: bool = False):
         ls = ls.to(wd).expand(bsz, *ls.shape[1:])
         mu = mu_s.to(wd).expand(bsz, *mu_s.shape[1:])
         if alpha_c is not None:
-            a = torch.as_tensor(alpha_c, dtype=wd, device=x.device)
+            # a float stays a 0-d tensor on the host, which the device ops
+            # take as a scalar: a copy to the card would be a blocking one
+            # (the host would wait for the device to drain its stream)
+            a = torch.as_tensor(alpha_c, dtype=wd)
             ls = ls * (1.0 - a) + lc * a
             mu = mu * (1.0 - a) + mean * a
         t = ls @ _inv_lower(lc)

@@ -172,7 +172,9 @@ class MixFFN(nn.Module):
     """fc1 -> 3x3 depthwise conv -> GELU -> fc2. bf16 activations whose
     hidden width is a multiple of 128 take the fused kernel (K5), with the
     taps that `SegFormer.half_copy` lays out once (`taps`); without them
-    every call lays them out anew."""
+    every call lays them out anew. The taps are a non-persistent buffer:
+    `.to(device)` moves them with the weights, and `state_dict` leaves
+    them out."""
 
     def __init__(self, dim, device):
         super().__init__()
@@ -180,7 +182,7 @@ class MixFFN(nn.Module):
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.dwconv = DWConv(hidden, device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
-        self.taps = None
+        self.register_buffer("taps", None, persistent=False)
 
     def forward(self, x, h, w):
         b, n, _ = x.shape
@@ -317,6 +319,14 @@ class SegFormer(nn.Module):
         self.depths = tuple(depths)
         self.backbone = MixTransformer(self.depths, device)
         self.decode_head = DecodeHead(device)
+        # the input normalisation's constants, on the device once: a
+        # tensor built from host values at every call is a blocking copy,
+        # which holds the host until the device has drained its stream
+        for name, values in (("pixel_mean", IMAGENET_MEAN),
+                             ("pixel_std", IMAGENET_STD)):
+            self.register_buffer(name, torch.tensor(
+                values, dtype=torch.float32, device=device),
+                persistent=False)
         self._half = None
 
     @torch.no_grad()
@@ -339,6 +349,13 @@ class SegFormer(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._half = None
         return super().load_state_dict(*args, **kwargs)
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda() and the like reach every parameter through here;
+        # the bf16 twin is no submodule, so it is dropped and made anew
+        # from the moved weights at its next use
+        self._half = None
+        return super()._apply(fn, *args, **kwargs)
 
     def half_copy(self):
         """A copy whose linear and conv weights and biases (the depthwise
@@ -365,11 +382,14 @@ class SegFormer(nn.Module):
         return self.decode_head(feats)
 
 
-def _normalize(image):
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=image.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                       device=image.device)
+def _normalize(image, mean=None, std=None):
+    """(image - mean) / std in float32, by the ImageNet statistics (those
+    on a SegFormer's device when given)."""
+    if mean is None:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                            device=image.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                           device=image.device)
     return (image.float() - mean) / std
 
 
@@ -380,7 +400,7 @@ def segment_logits(net: SegFormer, image, half: bool = False):
 
     half=True runs the backbone and head in bf16 (LayerNorm internals and
     the final logits stay float32)."""
-    x = _normalize(image)
+    x = _normalize(image, net.pixel_mean, net.pixel_std)
     with true_f32():
         if half:
             x = x.to(torch.bfloat16)

@@ -1,9 +1,10 @@
 """ops of the PyTorch port (see the package docstring).
 
-Each kernel's launches are counted where it is launched, in a plain int
-attribute of its wrapper; `launch_counts` reads all eight by kernel name
-and `reset_launch_counts` clears them, so a run can show which kernels its
-path went through. The counts are disjoint: "coupling" is the CUDA-core K1
+Each kernel's launches are counted where it is launched (`count_launch`),
+in a plain int attribute of its wrapper and, by device, in the wrapper's
+`device_launches` counter; `launch_counts` reads all eight by kernel name
+(for one device when given one) and `reset_launch_counts` clears them, so
+a run can show which kernels its path went through, and on which card. The counts are disjoint: "coupling" is the CUDA-core K1
 kernel (csrc/coupling.cu) and "coupling_mma" the tensor-core one
 (csrc/coupling_mma.cu), both launched by `fused_coupling`; "transition" /
 "transition_mma" and "transition_half" / "transition_half_mma" are
@@ -15,12 +16,25 @@ statistics, the matting term, the training losses): bf16 and float32
 compute in float32, float64 (a reference run) stays float64.
 """
 
+import threading
+
 import torch
+
+# the counts are read-modify-writes from whichever thread launches
+_COUNT_LOCK = threading.Lock()
 
 
 def at_least_f32(x):
     """x in float32, or in float64 when it is float64."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def count_launch(fn, attr: str, device) -> None:
+    """One launch of wrapper `fn`'s kernel counted by `attr`, on CUDA
+    `device`. Called where the kernel is launched, and nowhere else."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        fn.device_launches[(attr, device.index)] += 1
 
 
 def _counters():
@@ -40,12 +54,19 @@ def _counters():
             "dwconv_gelu": (dwconv.dwconv3x3_bias_gelu, "launches")}
 
 
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel name."""
-    return {name: getattr(fn, attr)
+def launch_counts(device=None) -> dict:
+    """Kernel launches since the last reset, by kernel name: all of them,
+    or those on CUDA `device` alone."""
+    if device is None:
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in _counters().items()}
+    index = torch.device(device).index
+    return {name: fn.device_launches[(attr, index)]
             for name, (fn, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    with _COUNT_LOCK:
+        for fn, attr in _counters().values():
+            setattr(fn, attr, 0)
+            fn.device_launches.clear()

@@ -22,9 +22,11 @@ launches.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from vstnet_tpu_torch.ops import _build
+from vstnet_tpu_torch.ops import _build, count_launch
 
 # Largest K/V token count the wrapper takes (the kernel itself has no limit
 # from M) and the smallest query count it is routed for: the JAX package's
@@ -110,8 +112,9 @@ def sr_attention(q, k, v, scale: float):
             *_strides(k4, "k"), *_strides(v4, "v"), *_strides(out, "out"),
             stream)
     _build.check(err, "sr_attention")
-    sr_attention.launches += 1
+    count_launch(sr_attention, "launches", q.device)
     return out.reshape(q.shape)
 
 
 sr_attention.launches = 0
+sr_attention.device_launches = collections.Counter()

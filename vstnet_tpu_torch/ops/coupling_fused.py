@@ -34,11 +34,12 @@ and `csrc/transition_mma.cu`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import torch
 
-from vstnet_tpu_torch.ops import _build
+from vstnet_tpu_torch.ops import _build, count_launch
 from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 from vstnet_tpu_torch.ops.pad_conv import residual_branch_nchw
 
@@ -369,19 +370,20 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
                 x1.data_ptr(), x2.data_ptr(), pieces, b1,
                 out.data_ptr(), b, c, m, h, wd, int(inverse), stream)
             _build.check(err, "fused_coupling (tensor cores)")
-            fused_coupling.mma_launches += 1
+            count_launch(fused_coupling, "mma_launches", x1.device)
         else:
             err = lib.vst_coupling(
                 x1.data_ptr(), x2.data_ptr(), w["flat"].data_ptr(),
                 out.data_ptr(), b, c, m, h, wd, int(inverse),
                 int(x1.dtype == torch.bfloat16), stream)
             _build.check(err, "fused_coupling (CUDA cores)")
-            fused_coupling.fma_launches += 1
+            count_launch(fused_coupling, "fma_launches", x1.device)
     return out
 
 
 fused_coupling.fma_launches = 0
 fused_coupling.mma_launches = 0
+fused_coupling.device_launches = collections.Counter()
 
 
 def coupling_launches() -> int:
@@ -424,19 +426,20 @@ def fused_transition(a, b, w, inverse: bool = False):
                 a.data_ptr(), b.data_ptr(), pieces, b1, out0.data_ptr(),
                 out1.data_ptr(), bsz, c, m, h, wd, int(inverse), stream)
             _build.check(err, "fused_transition (tensor cores)")
-            fused_transition.mma_launches += 1
+            count_launch(fused_transition, "mma_launches", a.device)
         else:
             err = lib.vst_transition(
                 a.data_ptr(), b.data_ptr(), w["flat"].data_ptr(),
                 out0.data_ptr(), out1.data_ptr(), bsz, c, m, h, wd,
                 int(inverse), int(a.dtype == torch.bfloat16), stream)
             _build.check(err, "fused_transition (CUDA cores)")
-            fused_transition.fma_launches += 1
+            count_launch(fused_transition, "fma_launches", a.device)
     return out0, out1
 
 
 fused_transition.fma_launches = 0
 fused_transition.mma_launches = 0
+fused_transition.device_launches = collections.Counter()
 
 
 def fused_transition_half(a_u, b_u, w, inverse: bool = False):
@@ -466,22 +469,24 @@ def fused_transition_half(a_u, b_u, w, inverse: bool = False):
                 a_u.data_ptr(), b_u.data_ptr(), pieces, b1, out.data_ptr(),
                 bsz, c, m, h, wd, int(inverse), stream)
             _build.check(err, "fused_transition_half (tensor cores)")
-            fused_transition_half.mma_launches += 1
+            count_launch(fused_transition_half, "mma_launches", a_u.device)
         else:
             err = lib.vst_transition_half(
                 a_u.data_ptr(), b_u.data_ptr(), w["flat"].data_ptr(),
                 out.data_ptr(), bsz, c, m, h, wd, int(inverse),
                 int(a_u.dtype == torch.bfloat16), stream)
             _build.check(err, "fused_transition_half (CUDA cores)")
-            fused_transition_half.fma_launches += 1
+            count_launch(fused_transition_half, "fma_launches", a_u.device)
     return (out, b_u) if inverse else (b_u, out)
 
 
 fused_transition_half.fma_launches = 0
 fused_transition_half.mma_launches = 0
+fused_transition_half.device_launches = collections.Counter()
 
 
 def reset_launches() -> None:
     for fn in (fused_coupling, fused_transition, fused_transition_half):
         fn.fma_launches = 0
         fn.mma_launches = 0
+        fn.device_launches.clear()

@@ -13,10 +13,12 @@ kernel launches.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
-from vstnet_tpu_torch.ops import _build
+from vstnet_tpu_torch.ops import _build, count_launch
 
 
 def _taps(w, c: int):
@@ -70,8 +72,9 @@ def dwconv3x3_bias_gelu(x, w, b):
                                   bias.data_ptr(), out.data_ptr(), bsz, h,
                                   wd, c, stream)
     _build.check(err, "dwconv3x3_bias_gelu")
-    dwconv3x3_bias_gelu.launches += 1
+    count_launch(dwconv3x3_bias_gelu, "launches", x.device)
     return out
 
 
 dwconv3x3_bias_gelu.launches = 0
+dwconv3x3_bias_gelu.device_launches = collections.Counter()

@@ -1,0 +1,21 @@
+"""The data-parallel layer of the PyTorch port (counterpart of
+vstnet_tpu/parallel): one replica per device for inference, one process
+per device for training. The JAX package's NamedSharding helpers
+(`replicated`, `batch_sharded`, `spatial_sharded`) have no counterpart:
+`replicate` and `shard_batch` place the data themselves, and
+`parallel_train_step` stands for `make_parallel_train_step` and
+`make_parallel_flat_step`. Row (spatial) sharding is not ported."""
+
+from vstnet_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
+from vstnet_tpu_torch.parallel.sharding import (  # noqa: F401
+    Replicated,
+    gather,
+    map_shards,
+    parallel_stylize,
+    parallel_stylize_factored,
+    parallel_stylize_fused,
+    parallel_stylize_masked_fused,
+    parallel_train_step,
+    replicate,
+    shard_batch,
+)

@@ -1,0 +1,284 @@
+"""Data-parallel entry points: stylization over several devices, and the
+training step over a torch.distributed group.
+
+Counterpart of vstnet_tpu/parallel/sharding.py. The JAX package
+annotates shardings and lets GSPMD (or shard_map, around the Pallas
+programs) place the work; here it is placed by hand, in PyTorch's idiom:
+
+  * inference runs in one process with one replica per device. The batch
+    is split into contiguous equal shards, one per device in the mesh's
+    order (GSPMD's layout of a batch-sharded array); every other argument
+    (weights, style factors, tables) is replicated to each device; each
+    device runs the single-device program on its shard; the results stay
+    per device, in order (`gather` joins them). Frames are independent,
+    so there is no collective. Every shard is enqueued before anything is
+    read back, from one thread, device after device: kernels launch
+    asynchronously, so the devices overlap as far as the host's enqueue
+    is shorter than a shard's device time and the program makes the host
+    wait for no device (chip_smoke.py phase 12 measures both).
+  * training runs one process per device (parallel/multihost.py): each
+    rank runs `loss_and_grads` on its rows, then one all-reduce of one
+    flat buffer holding every gradient and the aux losses, as the JAX
+    package's flat step reduces one raveled vector. DDP's wrapper does
+    not fit: `loss_and_grads` runs 5-7 passes of the same parameters
+    before its single backward.
+
+The programs are the single-device ones of models/pipeline.py, looked up
+when a parallel function is made, not copies of them. A mesh is the tuple
+of devices of mesh.make_mesh; two entries may name one device (two
+replicas on one card). Row (spatial) sharding is not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import copy
+import dataclasses
+import itertools
+from typing import Sequence
+
+import torch
+
+from vstnet_tpu_torch.config import RevResNetConfig
+
+
+class Replicated(tuple):
+    """One object's copies, one per device of a mesh, in its order
+    (`replicate`'s result). Passed to a parallel function in place of the
+    object, it is used as it is."""
+
+
+def _on(device):
+    """The device's context: the kernels' wrappers and torch's ops launch
+    on its current stream."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _module_on(module, device) -> bool:
+    return all(t.device == device for t in itertools.chain(
+        module.parameters(), module.buffers()))
+
+
+def _to(obj, device):
+    """obj on `device`: tensors moved, modules copied there, containers
+    walked; objects already there are returned as they are."""
+    from vstnet_tpu_torch.models.segformer import Segmenter
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, Segmenter):
+        return dataclasses.replace(obj, net=_to(obj.net, device),
+                                   label_mapping=_to(obj.label_mapping,
+                                                     device))
+    if isinstance(obj, torch.nn.Module):
+        if _module_on(obj, device):
+            return obj
+        # a SegFormer drops its bf16 twin here (SegFormer._apply) and
+        # makes it anew on the device, taps included
+        return copy.deepcopy(obj).to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to(v, device) for v in obj)
+    return obj
+
+
+def replicate(devices: Sequence[torch.device], obj) -> Replicated:
+    """obj's copies on each device: tensors, nn.Modules (RevResNet,
+    SegFormer), a Segmenter, and dicts, tuples and lists of them (the
+    pack_revresnet dict, style factors, style_region, a remap plan). One
+    copy per distinct device, shared by the replicas that device holds;
+    the object itself stands for the device it lies on. A Replicated is
+    returned as it is."""
+    if isinstance(obj, Replicated):
+        if len(obj) != len(devices):
+            raise ValueError(f"replicate: {len(obj)} replicas for "
+                             f"{len(devices)} devices")
+        return obj
+    copies = {}
+    for d in devices:
+        if d not in copies:
+            copies[d] = _to(obj, d)
+    return Replicated(copies[d] for d in devices)
+
+
+class _ReplicaCache:
+    """replicate() with the copies kept per object, so that a parallel
+    function called again with the same weights copies nothing; the
+    CACHED most recent objects are kept."""
+
+    CACHED = 8
+
+    def __init__(self, devices):
+        self.devices = devices
+        self._copies = collections.OrderedDict()
+
+    def __call__(self, obj) -> Replicated:
+        if isinstance(obj, Replicated) or isinstance(
+                obj, (int, float, bool, str, type(None))):
+            return replicate(self.devices, obj)
+        hit = self._copies.get(id(obj))
+        if hit is not None and hit[0] is obj:
+            self._copies.move_to_end(id(obj))
+            return hit[1]
+        reps = replicate(self.devices, obj)
+        # the object is kept with its copies, so that its id stays its own
+        self._copies[id(obj)] = (obj, reps)
+        while len(self._copies) > self.CACHED:
+            self._copies.popitem(last=False)
+        return reps
+
+
+def shard_batch(devices: Sequence[torch.device], x):
+    """x (B, ...) split on its first axis into len(devices) contiguous
+    equal shards, shard i copied to devices[i] (asynchronously from pinned
+    memory). A list or tuple of shards, one per device, is returned as a
+    list. Raises when B does not divide."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(devices):
+            raise ValueError(f"shard_batch: {len(x)} shards for "
+                             f"{len(devices)} devices")
+        return list(x)
+    n = len(devices)
+    if x.shape[0] % n:
+        raise ValueError(f"shard_batch: batch {x.shape[0]} not divisible "
+                         f"by {n} devices")
+    return [s.to(d, non_blocking=True)
+            for s, d in zip(x.split(x.shape[0] // n), devices)]
+
+
+def gather(shards, device=None):
+    """The shards joined in order on `device` (default: the first shard's)
+    into one batch."""
+    device = shards[0].device if device is None else torch.device(device)
+    return torch.cat([s.to(device) for s in shards])
+
+
+def map_shards(devices: Sequence[torch.device], local_fn,
+               sharded: Sequence[int] = (1,)):
+    """fn(*args) running local_fn once per device: the arguments at the
+    positions in `sharded` split by shard_batch (or given as shards), the
+    others replicated (copies cached per object). Returns the per-device
+    results in the devices' order: a list, or a tuple of lists when
+    local_fn returns a tuple. Every shard is enqueued before the next
+    device's; nothing is read back."""
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("map_shards: no devices")
+    cache = _ReplicaCache(devices)
+
+    def fn(*args):
+        per_arg = [shard_batch(devices, a) if i in sharded else cache(a)
+                   for i, a in enumerate(args)]
+        outs = []
+        for i, d in enumerate(devices):
+            with _on(d):
+                outs.append(local_fn(*(a[i] for a in per_arg)))
+        if isinstance(outs[0], tuple):
+            return tuple(list(o) for o in zip(*outs))
+        return outs
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel inference
+# ---------------------------------------------------------------------------
+
+def parallel_stylize(devices, cfg: RevResNetConfig):
+    """fn(net, content, style) -> shards of decode(cWCT(encode(content),
+    encode(style))) on the float32 standard path, content and style both
+    split over the devices (their batches match), the RevResNet
+    replicated. cfg is the net's own (kept for the JAX signature)."""
+    from vstnet_tpu_torch.models import pipeline
+
+    return map_shards(devices, pipeline.stylize, sharded=(1, 2))
+
+
+def parallel_stylize_factored(devices, cfg: RevResNetConfig):
+    """fn(net, frames, ls, mu_s) -> shards of the standard path's frames
+    clamped to [0,1], stylized against one style's factors
+    (cwct.style_factors), which are replicated with the net."""
+    from vstnet_tpu_torch.models import cwct
+
+    @torch.no_grad()
+    def local(net, frames, ls, mu_s):
+        z_cs = cwct.transfer_with_factors(net.encode(frames), ls, mu_s)
+        return net.decode(z_cs).clamp(0.0, 1.0)
+
+    return map_shards(devices, local)
+
+
+def parallel_stylize_fused(devices, cfg: RevResNetConfig,
+                           out_u8: bool = False, interp: bool = False):
+    """fn(fast_params, frames, ls, mu_s[, alpha_c]) -> shards of
+    pipeline.make_fused_video_fn's program (the global bf16 kernel path
+    with the packed latent), frames split over the devices; the packed
+    weights, the packed style factors and alpha_c replicated. out_u8 and
+    interp as in make_fused_video_fn."""
+    from vstnet_tpu_torch.models import pipeline
+
+    return map_shards(devices, pipeline.make_fused_video_fn(
+        cfg, out_u8=out_u8, interp=interp))
+
+
+def parallel_stylize_masked_fused(devices, cfg: RevResNetConfig,
+                                  min_ratio: float = 0.02,
+                                  out_u8: bool = False, seg_hw=None,
+                                  seg_half: bool = True):
+    """fn(fast_params, seg_net, mapping, style_region, remap_plan, frames)
+    -> (frame shards, mask shards) of pipeline.make_masked_fused_video_fn's
+    program (segment, remap, fused encode, regional cWCT, fused decode),
+    frames split over the devices; the packed weights, the SegFormer (each
+    copy lays out its own bf16 twin and K5 taps on its device), the
+    mapping and the per-video style state (prepare_masked_style)
+    replicated."""
+    from vstnet_tpu_torch.models import pipeline
+
+    return map_shards(devices, pipeline.make_masked_fused_video_fn(
+        cfg, min_ratio=min_ratio, out_u8=out_u8, seg_hw=seg_hw,
+        seg_half=seg_half), sharded=(5,))
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training
+# ---------------------------------------------------------------------------
+
+def parallel_train_step(state, vgg, a, b, tc, flow=None, noise=None,
+                        temporal_phase: bool = False, group=None):
+    """One optimizer step of a rank in place; returns the aux losses of
+    the global batch.
+
+    a, b (and flow, noise in the temporal phase) are this rank's rows of
+    the global batch, every rank holding as many. In order: the local
+    loss_and_grads (its matting cotangent scaled by the world size, see
+    train/losses.py); one all_reduce (sum) of a flat buffer of every
+    gradient and the aux vector; the division by the world size, after
+    which the gradient is the global batch's and the aux losses its
+    means; then the trainer's global-norm clip, Adam step and schedule
+    (train/trainer.apply_gradients). Every rank applies the same reduced
+    buffer, so the parameters stay bit-identical across ranks."""
+    import torch.distributed as dist
+
+    from vstnet_tpu_torch.train.losses import AUX_KEYS, loss_and_grads
+    from vstnet_tpu_torch.train.trainer import apply_gradients
+
+    world = dist.get_world_size(group)
+    _, aux = loss_and_grads(state.net, vgg, a, b, tc.weights, flow, noise,
+                            temporal_phase, tc.precision, shards=world)
+    grads = [p.grad for p in state.net.parameters()]
+    dt = grads[0].dtype
+    flat = torch.cat([g.reshape(-1).to(dt) for g in grads]
+                     + [torch.stack([aux[k] for k in AUX_KEYS]).to(dt)])
+    dist.all_reduce(flat, group=group)
+    flat.div_(world)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    aux = dict(zip(AUX_KEYS, flat[off:].float()))
+    apply_gradients(state, tc)
+    return aux

@@ -1,4 +1,4 @@
-"""HTTP stylization service of the PyTorch port, on one device.
+"""HTTP stylization service of the PyTorch port.
 
 Counterpart of vstnet_tpu/serve.py, with its endpoints and JSON bodies:
 
@@ -23,15 +23,23 @@ another order at another batch count, which moves replies by uint8 levels
 (chip_smoke.py phase 9 prints by how much, and both forms' times). On the
 fused path a reply equals the same content sent alone, bit for bit.
 
-Only the worker and style registration touch the device, each under one
+Only the worker and style registration touch the devices, each under one
 lock, so a registration never interleaves with a batch; HTTP handler
 threads decode the request images on the host, and the worker encodes the
 replies. `batch_log` keeps, for each recent batch, the worker's host clock
 around its device section and its reply encodes. The model's device decides
-where everything runs (StyleModel's constructors put it on the CUDA card
-unless given device="cpu"). A failure in a batch (a kernel's included) is
-reported to each of its requests and never stops the worker: there is no
+where the styles are encoded (StyleModel's constructors put it on the CUDA
+card unless given device="cpu"). A failure in a batch (a kernel's included)
+is reported to each of its requests and never stops the worker: there is no
 fallback to another route.
+
+Several cards, as the JAX service runs over its mesh: with the model on a
+card, the service keeps one replica of the weights on every visible card
+(or on the `devices` it is given), registers each style's factors on each,
+pads a batch to a multiple of the device count, and runs each device's
+contiguous shard of it (parallel/sharding.map_shards); the shards come
+back in order to the first device. Frames stay independent, so a reply is
+the same whichever shard it lands in.
 
 Endpoints:
   GET  /healthz               -> JSON {status, mode, fast, styles, device,
@@ -41,8 +49,7 @@ Endpoints:
   POST /stylize?style=<name>  -> the stylized PNG (body: content image
                                  bytes; optional &max_size=N)
 
-One device: the JAX package's mesh (sharded) branches have no counterpart
-here. No third-party server: stdlib http.server with a threading mixin.
+No third-party server: stdlib http.server with a threading mixin.
 """
 
 from __future__ import annotations
@@ -64,6 +71,8 @@ import torch
 
 from vstnet_tpu_torch.models import cwct
 from vstnet_tpu_torch.models import revresnet_fast as rf
+from vstnet_tpu_torch.parallel.mesh import make_mesh
+from vstnet_tpu_torch.parallel.sharding import gather, map_shards, replicate
 from vstnet_tpu_torch.runtime.buckets import bucket_hw
 
 
@@ -105,12 +114,13 @@ class _Job:
 
 class StyleService:
     """Model + registered styles + the coalescing batch worker. Builds
-    nothing itself: it runs where `model.net` lies. `close()` stops the
-    worker."""
+    nothing itself: it runs where `model.net` lies, and on every visible
+    card when that is a card (`devices`, a mesh of parallel/mesh.py,
+    overrides it). `close()` stops the worker."""
 
     def __init__(self, model, fast: bool = False, grid: int = 64,
                  max_size: int = 1280, max_batch: int = 8,
-                 batch_window_ms: float = 5.0):
+                 batch_window_ms: float = 5.0, devices=None):
         self.model = model
         self.fast = fast
         self.grid = grid
@@ -118,7 +128,13 @@ class StyleService:
         self.max_batch = max_batch
         self.window_s = batch_window_ms / 1000.0
         self.device = next(model.net.parameters()).device
+        if devices is None:
+            devices = (make_mesh() if self.device.type == "cuda"
+                       else (self.device,))
+        self.devices = tuple(torch.device(d) for d in devices)
+        self._shards = map_shards(self.devices, self._program)
         self.styles: Dict[str, Tuple] = {}   # name -> (ls, mu_s)
+        self._replicas: Dict[str, Tuple] = {}  # name -> one copy a device
         # registrations come from handler threads, reads from the worker
         self._styles_lock = threading.Lock()
         # one user of the device at a time: the worker's batches and
@@ -160,18 +176,21 @@ class StyleService:
                 ls, mu = cwct.style_factors_packed(zp, cfg.latent_channels)
             else:
                 ls, mu = cwct.style_factors(self.model.net.encode(x))
-        # (C, C) and (C,) per style: resolution-independent, reused by
-        # every request
+            # (C, C) and (C,) per style: resolution-independent, reused
+            # by every request, on every device
+            factors = replicate(self.devices, (ls, mu))
         with self._styles_lock:
             self.styles[name] = (ls, mu)
+            self._replicas[name] = factors
 
     def style_names(self):
         with self._styles_lock:
             return sorted(self.styles)
 
     def _style_factors(self, name: str):
+        """The style's factors, one copy a device."""
         with self._styles_lock:
-            return self.styles[name]
+            return self._replicas[name]
 
     # -- request path -------------------------------------------------------
     def stylize(self, data: bytes, style: str,
@@ -226,26 +245,35 @@ class StyleService:
         return batch, stash
 
     @torch.no_grad()
-    def _stylize_batch(self, frames, style_name: str):
-        """uint8 (B, H, W, 3) on the device -> stylized uint8, same shape."""
-        ls, mu = self._style_factors(style_name)
+    def _program(self, weights, frames, factors):
+        """One device's shard: uint8 (b, H, W, 3) -> stylized uint8, with
+        that device's weights (the packed fast weights or the net) and
+        style factors."""
+        ls, mu = factors
         cfg = self.model.cfg
         c_lat = cfg.latent_channels
         x = frames.float() / 255.0
         if self.fast:
-            fp = self.model.fast_params
-            zp = rf.encode_fast(fp, x.to(fp["dtype"]), cfg,
+            zp = rf.encode_fast(weights, x.to(weights["dtype"]), cfg,
                                 packed_latent=True)
             z_cs = torch.cat([cwct.transfer_with_factors_packed(
                 zp[i:i + 1], ls, mu, c_lat) for i in range(zp.shape[0])])
-            out = rf.decode_fast(fp, z_cs, cfg, packed_latent=True)
+            out = rf.decode_fast(weights, z_cs, cfg, packed_latent=True)
         else:
-            z = self.model.net.encode(x)
+            z = weights.encode(x)
             z_cs = torch.cat([cwct.transfer_with_factors(z[i:i + 1], ls, mu)
                               for i in range(z.shape[0])])
-            out = self.model.net.decode(z_cs)
+            out = weights.decode(z_cs)
         out = out.float().clamp(0.0, 1.0)
         return torch.round(out * 255.0).to(torch.uint8)
+
+    def _stylize_batch(self, frames, style_name: str):
+        """uint8 (B, H, W, 3) on the first device, B a multiple of the
+        device count -> stylized uint8 there, same shape: each device
+        stylizes its contiguous shard."""
+        weights = self.model.fast_params if self.fast else self.model.net
+        return gather(self._shards(weights, frames,
+                                   self._style_factors(style_name)))
 
     def _run(self):
         if self.device.type == "cuda":
@@ -256,18 +284,21 @@ class StyleService:
             if batch is None:
                 return
             try:
-                # pad the batch to the next power of two: a few batch
-                # shapes per bucket instead of one per batch size
+                # pad the batch to the next power of two (a few batch
+                # shapes per bucket instead of one per batch size), then
+                # to a multiple of the device count, so that it shards
                 n = len(batch)
                 n_pad = 1
                 while n_pad < n:
                     n_pad *= 2
+                n_dev = len(self.devices)
+                n_pad = -(-n_pad // n_dev) * n_dev
                 frames = np.concatenate(
                     [j.content for j in batch]
                     + [batch[0].content] * (n_pad - n), axis=0)
                 t0 = time.perf_counter()
                 with self._device_lock:
-                    x = torch.from_numpy(frames).to(self.device)
+                    x = torch.from_numpy(frames).to(self.devices[0])
                     out = self._stylize_batch(x, batch[0].key[2]).cpu()
                 t1 = time.perf_counter()
                 out = out.numpy()
@@ -308,8 +339,8 @@ def make_handler(service: StyleService):
                     "fast": service.fast,
                     "styles": service.style_names(),
                     "device": service.device_name(),
-                    "devices": 1,
-                    "sharded": False,
+                    "devices": len(service.devices),
+                    "sharded": len(service.devices) > 1,
                     "max_batch": service.max_batch,
                 }
                 self._reply(200, json.dumps(info).encode())

@@ -94,11 +94,20 @@ def forward_losses(net: RevResNet, vgg: VGG, images_a, images_b,
 
 def loss_and_grads(net: RevResNet, vgg: VGG, images_a, images_b,
                    weights: LossWeights, flow=None, noise=None,
-                   temporal_phase: bool = False, precision: str = "f32"):
+                   temporal_phase: bool = False, precision: str = "f32",
+                   shards: int = 1):
     """One forward and one backward: (grads {name: tensor}, aux {AUX_KEYS:
     float32 scalar}). The gradients are also left in each parameter's
     .grad, replacing what was there. images_a, images_b (B, H, W, 3)
-    float32 in [0,1]."""
+    float32 in [0,1].
+
+    shards > 1: this batch is one of `shards` equal parts of a global
+    batch, whose gradient is the mean of the parts' gradients
+    (parallel/sharding.parallel_train_step). Every loss term is a mean
+    over the batch except the matting term, whose cotangent is one
+    per-sample gradient per image, a sum over the batch: it is scaled by
+    `shards` here so that the mean holds for it too. The aux losses are
+    this part's means."""
     dt = DTYPES[precision]
     for p in net.parameters():
         p.grad = None
@@ -109,7 +118,10 @@ def loss_and_grads(net: RevResNet, vgg: VGG, images_a, images_b,
     if weights.lap > 0:
         lap_per_sample, lap_grad = matting_loss_and_grad(images_a, stylized)
         lap_cotangent = (lap_grad * weights.lap).clamp(
-            -weights.lap_clamp, weights.lap_clamp).to(stylized.dtype)
+            -weights.lap_clamp, weights.lap_clamp)
+        if shards != 1:
+            lap_cotangent = lap_cotangent * shards
+        lap_cotangent = lap_cotangent.to(stylized.dtype)
         aux["loss_lap"] = lap_per_sample.mean()
     else:
         lap_cotangent = torch.zeros_like(stylized)

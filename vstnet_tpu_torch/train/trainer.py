@@ -2,9 +2,10 @@
 clip, two phases (image, then video fine-tune), checkpoints, the loss log
 and an HTML sample gallery.
 
-Counterpart of vstnet_tpu/train/trainer.py, on one device: the same
-defaults, checkpoint names (last.pt, model_image.pt, model_video.pt) and
-loss.log line format. Model weights are written in the reference key
+Counterpart of vstnet_tpu/train/trainer.py: the same defaults,
+checkpoint names (last.pt, model_image.pt, model_video.pt) and loss.log
+line format, on one device or data-parallel over a torch.distributed
+group of one process per device (`train`'s data_parallel). Model weights are written in the reference key
 schema and load in either package; the optimizer, the schedule and the
 step go to `<checkpoint>.opt.pt` (torch.save), which only this package
 reads (the JAX package's `.opt.msgpack` is flax's).
@@ -119,16 +120,22 @@ def init_train_state(tc: TrainConfig, device=None,
     return TrainState(net, opt, sched)
 
 
-def train_step(state: TrainState, vgg, images_a, images_b, tc: TrainConfig,
-               flow=None, noise=None, temporal_phase: bool = False):
-    """One optimizer step in place; returns the aux losses."""
-    _, aux = loss_and_grads(state.net, vgg, images_a, images_b, tc.weights,
-                            flow, noise, temporal_phase, tc.precision)
+def apply_gradients(state: TrainState, tc: TrainConfig) -> None:
+    """The clip to tc.grad_clip's global norm, one Adam step and one
+    schedule step, on the gradients in the parameters' .grad."""
     clip_by_global_norm([p.grad for p in state.net.parameters()],
                         tc.grad_clip)
     state.opt.step()
     state.sched.step()
     state.step += 1
+
+
+def train_step(state: TrainState, vgg, images_a, images_b, tc: TrainConfig,
+               flow=None, noise=None, temporal_phase: bool = False):
+    """One optimizer step in place; returns the aux losses."""
+    _, aux = loss_and_grads(state.net, vgg, images_a, images_b, tc.weights,
+                            flow, noise, temporal_phase, tc.precision)
+    apply_gradients(state, tc)
     return aux
 
 
@@ -249,46 +256,112 @@ def train(tc: TrainConfig, content_dir, style_dir, vgg,
           resume: bool = False, resume_iter: int = -1,
           max_steps: Optional[int] = None, loader_workers: int = 4,
           data_parallel: str = "auto", device=None) -> TrainState:
-    """The reference train.py loop on one device (`vgg`'s, or `device`).
-    `max_steps` caps the steps of this call. The step is temporal while
-    step > training_iterations. data_parallel "auto" and "off" train on
-    one device; "on" needs more than one and is not ported."""
-    from vstnet_tpu_torch.ops.warp import generate_fake_flow
-    from vstnet_tpu_torch.train.data import InfiniteLoader
+    """The reference train.py loop. `max_steps` caps the steps of this
+    call. The step is temporal while step > training_iterations.
+
+    data_parallel: inside a torch.distributed group (torchrun's, or the
+    one parallel/multihost.init_distributed joins from the environment)
+    "auto" and "on" train data-parallel over its ranks, one device each;
+    outside one, "auto" spawns one rank per visible card when there are
+    several (NCCL on 127.0.0.1) and returns rank 0's last.pt, "on" needs
+    several cards, and "off" (or one device) trains on `vgg`'s device or
+    `device`. Data-parallel, the global batch is batch_size per rank, each
+    rank's loaders and flow are seeded with seed + rank, rank 0's initial
+    or resumed weights are broadcast, the step is
+    parallel/sharding.parallel_train_step, and rank 0 alone writes
+    loss.log (global-batch means), the checkpoints, the samples and
+    index.html."""
+    import torch.distributed as dist
+
+    from vstnet_tpu_torch.parallel.multihost import init_distributed
 
     if tc.precision not in DTYPES:
         raise ValueError(f"precision {tc.precision!r}: use f32 or bf16")
+    if data_parallel not in ("auto", "on", "off"):
+        raise ValueError(f"data_parallel {data_parallel!r}: use auto, on "
+                         "or off")
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if init_distributed(backend="gloo" if on_cpu else None) \
+            and dist.get_world_size() > 1:
+        if data_parallel == "off":
+            raise ValueError(f"--data_parallel off in a group of "
+                             f"{dist.get_world_size()} processes")
+        return _train_loop(tc, content_dir, style_dir, vgg, resume,
+                           resume_iter, max_steps, loader_workers,
+                           resolve_device(device), dist.get_rank(),
+                           dist.get_world_size())
     device = resolve_device(device)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if data_parallel == "on":
-        if n_dev < 2:
-            raise ValueError(
-                f"--data_parallel on: only {n_dev} device visible")
-        raise NotImplementedError(
-            "--data_parallel on: multi-GPU data parallelism is not ported; "
-            "train on one device with --data_parallel off")
-    vgg = vgg.to(device)
+    if data_parallel == "on" and n_dev < 2:
+        raise ValueError(f"--data_parallel on: only {n_dev} device visible")
+    if data_parallel != "off" and n_dev > 1:
+        from vstnet_tpu_torch.parallel.multihost import spawn_ranks
 
+        vgg_state = {k: v.cpu() for k, v in vgg.state_dict().items()}
+        spawn_ranks(_train_rank, n_dev, args=(
+            tc, content_dir, style_dir, vgg_state,
+            dict(resume=resume, resume_iter=resume_iter,
+                 max_steps=max_steps, loader_workers=loader_workers)))
+        return load_checkpoint(tc, os.path.join(
+            tc.logs_directory, tc.base_name, "checkpoints"), device=device)
+    return _train_loop(tc, content_dir, style_dir, vgg, resume, resume_iter,
+                       max_steps, loader_workers, device, 0, 1)
+
+
+def _train_rank(rank, tc, content_dir, style_dir, vgg_state, kwargs):
+    """One spawned rank of train(data_parallel="auto"): its card is the
+    current device, its group is live."""
+    from vstnet_tpu_torch.models.vgg import VGG
+
+    vgg = VGG(device=resolve_device(None))
+    vgg.load_state_dict(vgg_state)
+    train(tc, content_dir, style_dir, vgg, data_parallel="on", **kwargs)
+
+
+def _train_loop(tc, content_dir, style_dir, vgg, resume, resume_iter,
+                max_steps, loader_workers, device, rank, world):
+    from vstnet_tpu_torch.ops.warp import generate_fake_flow
+    from vstnet_tpu_torch.train.data import InfiniteLoader
+
+    vgg = vgg.to(device)
     logs_dir = os.path.join(tc.logs_directory, tc.base_name)
     ckpt_dir = os.path.join(logs_dir, "checkpoints")
     img_dir = os.path.join(logs_dir, "images")
-    os.makedirs(img_dir, exist_ok=True)
+    lead = rank == 0
+    if lead:
+        os.makedirs(img_dir, exist_ok=True)
 
     if resume:
         state = load_checkpoint(tc, ckpt_dir, resume_iter=resume_iter,
                                 device=device)
-        print(f"Resume from {ckpt_dir}/last.pt at iter {state.step}")
+        if lead:
+            print(f"Resume from {ckpt_dir}/last.pt at iter {state.step}")
     else:
         state = init_train_state(tc, device)
+    if world > 1:
+        import torch.distributed as dist
+
+        from vstnet_tpu_torch.parallel.sharding import parallel_train_step
+
+        with torch.no_grad():
+            for t in state.net.state_dict().values():
+                dist.broadcast(t, 0)
+        step_fn = parallel_train_step
+        if lead:
+            print(f"data-parallel training over {world} ranks "
+                  f"({dist.get_backend()}, global batch "
+                  f"{tc.batch_size * world})")
+    else:
+        step_fn = train_step
 
     loader_a = InfiniteLoader(content_dir, tc.batch_size, tc.new_size,
                               tc.crop_size, num_workers=loader_workers,
-                              seed=tc.seed)
+                              seed=tc.seed + rank)
     loader_b = InfiniteLoader(style_dir, tc.batch_size, tc.new_size,
                               tc.crop_size, num_workers=loader_workers,
-                              seed=tc.seed + 1000)
-    host_rng = np.random.default_rng(tc.seed + 7)
-    noise_gen = torch.Generator().manual_seed(tc.seed + 13)
+                              seed=tc.seed + 1000 + rank)
+    host_rng = np.random.default_rng(tc.seed + 7 + rank)
+    noise_gen = torch.Generator().manual_seed(tc.seed + 13 + rank)
     t0 = time.time()
     end = tc.total_iterations if max_steps is None else min(
         tc.total_iterations, state.step + max_steps)
@@ -309,9 +382,11 @@ def train(tc: TrainConfig, content_dir, style_dir, vgg,
                     noise = (stddev * torch.randn(
                         a.shape, generator=noise_gen)).to(device)
 
-                aux = train_step(state, vgg, a, b, tc, flow, noise, temporal)
+                aux = step_fn(state, vgg, a, b, tc, flow, noise, temporal)
 
                 it = state.step
+                if not lead:
+                    continue   # the log, samples and checkpoints: rank 0
                 if it % tc.log_every == 0:
                     msg = loss_message(it, tc.total_iterations, tc.weights,
                                        aux, (time.time() - t0) / max(it, 1))
@@ -337,7 +412,10 @@ def train(tc: TrainConfig, content_dir, style_dir, vgg,
     finally:
         loader_a.close()
         loader_b.close()
-    save_checkpoint(state, ckpt_dir, "last.pt")
+    if lead:
+        save_checkpoint(state, ckpt_dir, "last.pt")
+    if world > 1:
+        dist.barrier()
     return state
 
 
