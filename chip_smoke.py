@@ -2,8 +2,8 @@
 
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
 ultra-resolution tiler, the HTTP style service, the trainer, GGUF weights,
-the smoke CLI, the export artifacts and the data-parallel layer through
-the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
+the smoke CLI, the export artifacts, the data-parallel layer and the
+native tier through the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
 SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
 1280x720 and 960x540 requests, 256x256 training crops), with random
 weights made from a seed. Phases, in
@@ -155,6 +155,21 @@ order; any failure raises and the process exits non-zero:
               and a service burst of 16 requests, each frame and reply
               within one uint8 level of the single-device run, with
               per-device launches.
+ 13. native   (after phase 12; no kernel of the port lies on this path)
+              the engine and the runner built with g++ against torch's
+              CUDA libraries (ldd: libtorch_cuda, no libpython), the
+              full-depth PHOTO_CONFIG stylize and SegFormer-B4's
+              segment-render exported and packaged by AOTInductor at
+              512x512 float32 on the card with a cold Inductor cache
+              (compile seconds, MB); NativeEngine within 1e-4 of the
+              eager float32 stylize under true_f32; the runner on four
+              512x512 contents and one 1280x720 (both resizes), each PNG
+              within one uint8 level of the eager output, its own process
+              holding a CUDA context on the card; segment-render through
+              NativeEngine within 1e-4 on >= 99 % of the pixels (label
+              flips printed) and through the runner within one level;
+              the runner's execute ms per image beside the eager
+              program's, with the card's name and power limit.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -3437,6 +3452,265 @@ def phase_parallel(ops, model, style, seg, region, plan, gen, total, smi):
           f"{time.perf_counter() - t2:.1f})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the native tier (runtime/native.py, native/)
+# ---------------------------------------------------------------------------
+
+# the packages' shape; contents through the runner at that size (the first
+# one pays the runner's first-call costs and is left out of its mean), one
+# 1280x720 content through both resizes
+NATIVE_HW = 512
+NATIVE_IMAGES = 4
+NATIVE_WIDE = (720, 1280)
+# NativeEngine against the eager float32 programs (Inductor reorders
+# float32 sums); the runner's PNGs against the eager output rounded to
+# uint8, in levels; the share of segment-render pixels within NATIVE_TOL
+# (a near-tied label may flip under the reordered sums)
+NATIVE_TOL = 1e-4
+NATIVE_LEVELS = 1
+NATIVE_SEG_SHARE = 0.99
+
+
+def _u8_png(path, x):
+    """Write x (1, H, W, 3) in [0, 1] as an 8-bit PNG; return the float32
+    image the runner reads back from it, on x's device."""
+    from PIL import Image
+
+    u8 = (x[0].clamp(0, 1) * 255.0).round().to(torch.uint8).cpu().numpy()
+    Image.fromarray(u8).save(path)
+    return torch.from_numpy(u8).to(x.device).float()[None] / 255.0
+
+
+def _read_png(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path), np.int32)
+
+
+def _levels(x):
+    """x (1, H, W, 3) -> the uint8 levels the runner writes for it."""
+    return (x[0].clamp(0, 1) * 255.0 + 0.5).floor().to(torch.int32).cpu(
+        ).numpy()
+
+
+def _resize_nhwc(x, hw):
+    return torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1)
+
+
+def _run_native(binary, args):
+    """Run the runner; -> (stdout, {output name: execute ms})."""
+    import re
+
+    r = subprocess.run([str(binary), *map(str, args)], capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"vstnet-torch-native exited {r.returncode}:\n"
+                             f"{r.stdout}\n{r.stderr}")
+    ms = {m.group(1).rsplit("/", 1)[-1]: float(m.group(2)) for m in
+          re.finditer(r"wrote (\S+) \(execute ([0-9.]+) ms\)", r.stdout)}
+    return r.stdout, ms
+
+
+def _ldd_check(paths):
+    for p in paths:
+        deps = subprocess.run(["ldd", str(p)], capture_output=True,
+                              text=True, check=True).stdout
+        if "libpython" in deps or "not found" in deps:
+            raise AssertionError(f"ldd {p.name}:\n{deps}")
+        if "libtorch_cuda" not in deps:
+            raise AssertionError(f"{p.name} does not link libtorch_cuda:\n"
+                                 f"{deps}")
+
+
+def _package(native, export, path, what, device):
+    """export() then package_program -> (package, export s, compile s,
+    package MB)."""
+    import os
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = export()
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pkg = native.package_program(ep, path, device=device, what=what)
+    t_compile = time.perf_counter() - t0
+    return pkg, t_export, t_compile, os.path.getsize(pkg) / 2**20
+
+
+def _native_stylize(native, binary, model, device, gen, tmp, smi):
+    import numpy as np
+
+    from vstnet_tpu_torch.models.pipeline import stylize
+    from vstnet_tpu_torch.models.segformer import true_f32
+    from vstnet_tpu_torch.runtime import export as ex
+
+    hw, net = NATIVE_HW, model.net
+    pkg, t_export, t_compile, mb = _package(
+        native, lambda: ex.export_stylize(net, model.cfg, hw, hw,
+                                          device=device)[0],
+        f"{tmp}/stylize_{hw}x{hw}.aoti.pt2", "stylize", device)
+    print(f"native stylize {hw}x{hw} (PHOTO_CONFIG, float32): export "
+          f"{t_export:.1f} s, package compile {t_compile:.1f} s (cold "
+          f"Inductor cache), {mb:.1f} MB [{smi}]")
+
+    def eager(c, s):
+        with torch.no_grad(), true_f32():
+            return stylize(net, c, s)
+
+    # the engine in this process against the eager program
+    c = _frames(gen, 1, hw, device)
+    s = _frames(gen, 1, hw, device)
+    eng = native.NativeEngine()
+    eng.load(pkg)
+    ch, sh = c.cpu().numpy(), s.cpu().numpy()
+    (got,) = eng.execute([ch, sh])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.execute([ch, sh])
+    engine_ms = (time.perf_counter() - t0) / 5 * 1e3
+    eng.close()
+    err = float(np.abs(got - eager(c, s).cpu().numpy()).max())
+    print(f"native engine stylize vs eager float32: max abs err {err:.3e} "
+          f"(<= {NATIVE_TOL}); NativeEngine.execute {engine_ms:.2f} ms "
+          f"(host clock, host copies included) [{smi}]")
+    if not err <= NATIVE_TOL:
+        raise AssertionError(f"native engine stylize: {err:.3e}")
+
+    # the runner on PNGs: NATIVE_IMAGES contents at the package's size and
+    # one wide content that goes through both resizes
+    style = _u8_png(f"{tmp}/style.png", s)
+    contents = {f"c{i}": _u8_png(f"{tmp}/c{i}.png",
+                                 _frames(gen, 1, hw, device))
+                for i in range(NATIVE_IMAGES)}
+    contents["wide"] = _u8_png(f"{tmp}/wide.png",
+                               _frames(gen, 1, NATIVE_WIDE, device))
+    out, ms = _run_native(binary, [
+        "--artifact", pkg, "--style", f"{tmp}/style.png", "-o",
+        f"{tmp}/out", *(f"{tmp}/{k}.png" for k in contents)])
+    info = next(line for line in out.splitlines()
+                if line.startswith("device:"))
+    name = torch.cuda.get_device_name(0)
+    if name not in info or "primary context active" not in info:
+        raise AssertionError(f"the runner's process holds no CUDA context "
+                             f"on {name}: {info!r}")
+    worst = {}
+    for k, x in contents.items():
+        if k == "wide":
+            want = _resize_nhwc(eager(_resize_nhwc(x, (hw, hw)), style),
+                                NATIVE_WIDE)
+        else:
+            want = eager(x, style)
+        png = _read_png(f"{tmp}/out/{k}_style.png")
+        if png.shape != tuple(x.shape[1:]):
+            raise AssertionError(f"runner {k}: shape {png.shape}")
+        worst[k] = int(np.abs(png - _levels(want)).max())
+    if max(worst.values()) > NATIVE_LEVELS:
+        raise AssertionError(f"runner PNGs vs eager: levels {worst}")
+    runs = [ms[f"c{i}_style.png"] for i in range(NATIVE_IMAGES)]
+    mean = sum(runs[1:]) / len(runs[1:])
+
+    c, s = contents["c1"], style
+    eager_ms = _time_ms(lambda: eager(c, s), iters=10)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eager(c.cpu().to(device), s.cpu().to(device)).cpu()
+    eager_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"native runner stylize: {info}; PNGs vs the eager output "
+          f"rounded to uint8, levels {worst} (<= {NATIVE_LEVELS}; the wide "
+          f"one {NATIVE_WIDE[1]}x{NATIVE_WIDE[0]} through both resizes); "
+          f"execute ms per image {', '.join(f'{v:.2f}' for v in runs)} "
+          f"(first call, then mean {mean:.2f} ms, host clock with the host "
+          f"copies); eager float32 {eager_ms:.2f} ms (CUDA events) and "
+          f"{eager_host_ms:.2f} ms with the host copies (host clock) [{smi}]")
+    return mean, eager_ms
+
+
+def _native_segment(native, binary, seg_net, device, gen, tmp, smi):
+    import numpy as np
+
+    from vstnet_tpu_torch.models.segformer import true_f32
+    from vstnet_tpu_torch.runtime import export as ex
+
+    hw = NATIVE_HW
+    pkg, t_export, t_compile, mb = _package(
+        native, lambda: ex.export_segment_render(seg_net, hw, hw,
+                                                 device=device)[0],
+        f"{tmp}/segment_render_{hw}x{hw}.aoti.pt2", "segment-render",
+        device)
+    print(f"native segment-render {hw}x{hw} (SegFormer-B4, float32): "
+          f"export {t_export:.1f} s, package compile {t_compile:.1f} s "
+          f"(cold Inductor cache), {mb:.1f} MB [{smi}]")
+
+    def eager(x):
+        with torch.no_grad(), true_f32():
+            return _eager_render(seg_net, x, device)
+
+    x = _u8_png(f"{tmp}/scene.png", _frames(gen, 1, hw, device))
+    want = eager(x)
+    eng = native.NativeEngine()
+    eng.load(pkg)
+    (got,) = eng.execute([x.cpu().numpy()])
+    eng.close()
+    diff = np.abs(got - want.cpu().numpy()).max(-1)[0]
+    share = float((diff <= NATIVE_TOL).mean())
+    flipped = int((diff > NATIVE_TOL).sum())
+    out, ms = _run_native(binary, ["--artifact", pkg, "-o", f"{tmp}/seg",
+                                   f"{tmp}/scene.png", f"{tmp}/scene.png"])
+    png = _read_png(f"{tmp}/seg/scene_seg.png")
+    same = float((np.abs(png - _levels(want)).max(-1) <= NATIVE_LEVELS
+                  ).mean())
+    eager_ms = _time_ms(lambda: eager(x), iters=5)
+    print(f"native segment-render vs eager float32: {share:.5f} of the "
+          f"pixels within {NATIVE_TOL} (>= {NATIVE_SEG_SHARE}), {flipped} "
+          f"pixels whose label flipped; the runner's PNG within "
+          f"{NATIVE_LEVELS} level of the eager output on {same:.5f}; "
+          f"execute {ms['scene_seg.png']:.2f} ms (second call, host clock "
+          f"with the host copies), eager {eager_ms:.2f} ms (CUDA events) "
+          f"[{smi}]")
+    if share < NATIVE_SEG_SHARE or same < NATIVE_SEG_SHARE:
+        raise AssertionError(f"native segment-render: {share:.5f} of the "
+                             f"engine's pixels, {same:.5f} of the PNG's")
+
+
+def phase_native(model, seg, device, gen, smi):
+    """Phase 13: the native tier. Build the engine and the runner, package
+    the full-depth stylize program and SegFormer-B4's segment-render at
+    512x512 on the card (a cold Inductor cache), and hold the engine and
+    the runner, a process without Python, against the eager programs."""
+    import os
+    import tempfile
+
+    from vstnet_tpu_torch.runtime import native
+
+    try:
+        import triton
+        tri = f"triton {triton.__version__}"
+    except ImportError:
+        tri = "no triton"
+    t0 = time.perf_counter()
+    lib, binary = native.build()
+    t_build = time.perf_counter() - t0
+    _ldd_check([lib, binary])
+    print(f"native build: {binary.parent.name} in {t_build:.1f} s (g++ "
+          f"against torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"{tri}); ldd: libtorch_cuda, no libpython")
+    saved = os.environ.get("TORCHINDUCTOR_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="vstnet_native_") as tmp:
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = f"{tmp}/inductor"
+        try:
+            _native_stylize(native, binary, model, device, gen, tmp, smi)
+            _native_segment(native, binary, seg.net, device, gen, tmp, smi)
+        finally:
+            if saved is None:
+                os.environ.pop("TORCHINDUCTOR_CACHE_DIR", None)
+            else:
+                os.environ["TORCHINDUCTOR_CACHE_DIR"] = saved
+    print(f"phase native: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -3479,6 +3753,8 @@ def main():
     print(f"phase tools done at {time.perf_counter() - t0:.1f} s")
     phase_parallel(ops, model, style, seg, region, plan, gen, total, smi)
     print(f"phase parallel done at {time.perf_counter() - t0:.1f} s")
+    phase_native(model, seg, device, gen, smi)
+    print(f"phase native done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

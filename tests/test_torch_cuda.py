@@ -586,3 +586,34 @@ def test_video_program_enqueues_without_waiting_for_the_card(dev, interp):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_native_engine_on_card_matches_eager(dev, tmp_path):
+    """The native tier on the card: a tiny stylize program packaged for
+    CUDA runs through NativeEngine() (the card by default) within 1e-4 of
+    the eager float32 program under true_f32; the CPU engine refuses the
+    CUDA package rather than move it."""
+    from vstnet_tpu_torch.models.pipeline import stylize
+    from vstnet_tpu_torch.models.segformer import true_f32
+    from vstnet_tpu_torch.runtime import export as ex
+    from vstnet_tpu_torch.runtime import native
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    ep, _ = ex.export_stylize(net, cfg, 32, 48, device=dev)
+    pkg = native.package_program(ep, tmp_path / "stylize.aoti.pt2")
+    g = torch.Generator().manual_seed(1)
+    c, s = (torch.rand((1, 32, 48, 3), generator=g) for _ in range(2))
+    eng = native.NativeEngine()
+    eng.load(pkg)
+    assert eng.metadata("AOTI_DEVICE_KEY") == "cuda"
+    assert "primary context active" in eng.device_info
+    (got,) = eng.execute([c.numpy(), s.numpy()])
+    eng.close()
+    with torch.no_grad(), true_f32():
+        want = stylize(net, c.to(dev), s.to(dev)).cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-4
+    cpu = native.NativeEngine("cpu")
+    with pytest.raises(RuntimeError, match="compiled for cuda"):
+        cpu.load(pkg)

@@ -15,6 +15,23 @@ the CPU). The weights are held in the artifact:
 
 Load one with runtime/export.load_exported(path), which runs it with TF32
 cleared.
+
+With --native each artifact is also compiled into an AOTInductor package,
+`{what}_{H}x{W}.aoti.pt2`, for --device (runtime/native.package_program),
+which the standalone runner vstnet-torch-native (native/main.cc, built at
+first use by runtime/native.build) runs with no Python at run time:
+
+    vstnet-torch-export --what stylize --ckpoint photo_image.pt --native \
+        -o artifacts/
+    vstnet-torch-native --artifact artifacts/stylize_512x512.aoti.pt2 \
+        --style style.png -o out/ content1.png content2.png
+    vstnet-torch-native --artifact \
+        artifacts/segment_render_512x512.aoti.pt2 -o out/ scene.png
+
+`python -m vstnet_tpu_torch.runtime.native` is the runner too (it builds
+it, then replaces itself with it); the runner takes --device cuda (the
+default), cuda:N or cpu, and the package must have been made for that
+device type.
 """
 
 from __future__ import annotations
@@ -47,6 +64,10 @@ def build_parser():
     p.add_argument("--device", default=None,
                    help="torch device to export on (default: the CUDA card)")
     p.add_argument("--out_dir", "-o", type=str, default="artifacts")
+    p.add_argument("--native", action="store_true",
+                   help="also compile each artifact into an AOTInductor "
+                        "package {what}_{H}x{W}.aoti.pt2 for --device "
+                        "(the input of vstnet-torch-native)")
     return p
 
 
@@ -64,11 +85,17 @@ def main(argv=None):
     written = []
 
     def save(what, blob, oshape):
-        path = os.path.join(args.out_dir,
-                            f"{what.replace('-', '_')}_{h}x{w}.pt2")
-        ex.save_exported(path, blob)
+        stem = os.path.join(args.out_dir, f"{what.replace('-', '_')}_{h}x{w}")
+        path = ex.save_exported(stem + ".pt2", blob)
         print(f"wrote {path} (out {oshape})")
         written.append(path)
+        if args.native:
+            from vstnet_tpu_torch.runtime import native
+
+            pkg = native.package_program(path, stem + ".aoti.pt2",
+                                         device=device, what=what)
+            print(f"wrote {pkg} (AOTInductor package for {device})")
+            written.append(pkg)
 
     if any(x in ("stylize", "encoder", "decoder") for x in wanted):
         from vstnet_tpu_torch.models.pipeline import StyleModel

@@ -19,6 +19,11 @@ cuDNN's convs default to TF32 (the stylize artifact at 512x512 then lies
 8.8e-4 to 1.2e-3 from true float32 on an H100 80GB HBM3 at 700 W). The
 programs are traced with no TF32 context of their own, so `load_exported`
 clears TF32 around each call.
+
+The saved programs hold no example inputs. A compile needs them
+(torch._inductor.aoti_compile_and_package), so `signature_inputs`
+rebuilds zeros of the program's input signature, shapes and dtypes as it
+was traced; runtime/native.py:package_program compiles from those.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import os
 import numpy as np
 import torch
 from torch import nn
+from torch.export.graph_signature import InputKind
+from torch.utils import _pytree as pytree
 
 from vstnet_tpu_torch.device import resolve_device
 from vstnet_tpu_torch.models.pipeline import stylize
@@ -53,13 +60,28 @@ def _on(module: nn.Module, device: torch.device) -> nn.Module:
 def _export(module: nn.Module, args, serialized: bool):
     with torch.no_grad():
         ep = torch.export.export(module, args)
-    # the example inputs (zeros) would be saved with the program
+    # the example inputs (zeros) would be saved with the program;
+    # signature_inputs rebuilds them where a compile needs them
     ep.example_inputs = None
     if not serialized:
         return ep
     buf = io.BytesIO()
     torch.export.save(ep, buf)
     return buf.getvalue()
+
+
+def signature_inputs(ep, device=None):
+    """(args, kwargs) of zeros that match the program's user inputs, in the
+    shapes and dtypes it was traced with, on `device` (None: where the
+    program's signature says)."""
+    user = {s.arg.name for s in ep.graph_signature.input_specs
+            if s.kind == InputKind.USER_INPUT}
+    leaves = [torch.zeros(tuple(n.meta["val"].shape),
+                          dtype=n.meta["val"].dtype,
+                          device=device or n.meta["val"].device)
+              for n in ep.graph.nodes
+              if n.op == "placeholder" and n.name in user]
+    return pytree.tree_unflatten(leaves, ep.call_spec.in_spec)
 
 
 def _image(batch, h, w, device):
