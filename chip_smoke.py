@@ -2,8 +2,9 @@
 
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
 ultra-resolution tiler, the HTTP style service, the trainer, GGUF weights,
-the smoke CLI, the export artifacts, the data-parallel layer and the
-native tier through the entry points a user calls, at the full width and depth of PHOTO_CONFIG and
+the smoke CLI, the export artifacts, the data-parallel layer, the
+native tier and row sharding through the entry points a user calls, at
+the full width and depth of PHOTO_CONFIG and
 SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
 1280x720 and 960x540 requests, 256x256 training crops), with random
 weights made from a seed. Phases, in
@@ -170,6 +171,17 @@ order; any failure raises and the process exits non-zero:
               flips printed) and through the runner within one level;
               the runner's execute ms per image beside the eager
               program's, with the card's name and power limit.
+ 14. spatial  (after phase 13; no kernel of the port lies on this path)
+              row sharding: parallel_stylize and
+              parallel_stylize_factored with spatial=True on a (1, S)
+              mesh, S = 2 and 4, over S cards or S replicas on cuda:0
+              (said so), full-depth PHOTO_CONFIG in float32 with TF32 off
+              on phase 8's 3840x2160 content and 1024x576 style, each
+              within 1e-4 of model.stylize and of the single-device
+              factored program, decode_rows(encode_rows(x)) > 100 dB;
+              wall, device and host enqueue ms a call, halo bytes a
+              call, each card's peak memory beside the single-device
+              run's, with the card's name and power limit.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -3711,6 +3723,173 @@ def phase_native(model, seg, device, gen, smi):
     print(f"phase native: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: row (spatial) sharding (parallel/halo.py, spatial=True)
+# ---------------------------------------------------------------------------
+
+# shards of a data row; the gate of tests/test_parallel.py's spatial program
+# against the unsharded one; timed calls a program (phase 8's 4K content
+# takes ~0.6 s a float32 stylize); the round trip's float32 bar (phase 4)
+SPATIAL_S = (2, 4)
+SPATIAL_TOL = 1e-4
+SPATIAL_ITERS = 2
+SPATIAL_ROUND_TRIP_DB = 100.0
+
+
+class _HaloProbe:
+    """Within the block, the bytes of every halo row that parallel/halo.py
+    takes from a neighbour shard (copied to the shard's card where the two
+    lie on two cards)."""
+
+    def __enter__(self):
+        from vstnet_tpu_torch.parallel import halo
+
+        self.halo = halo
+        self.saved = halo._neighbour_rows
+        self.bytes = 0
+
+        def run(x, rows, device):
+            out = self.saved(x, rows, device)
+            self.bytes += out.numel() * out.element_size()
+            return out
+
+        halo._neighbour_rows = run
+        return self
+
+    def __exit__(self, *exc):
+        self.halo._neighbour_rows = self.saved
+
+
+def _spatial_grid(s):
+    """(a (1, s) mesh, whether its devices are distinct cards): s cards
+    where the host has them, else s replicas on cuda:0."""
+    from vstnet_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() >= s:
+        return make_mesh(s, ("data", "spatial"), spatial=s), True
+    return ((torch.device("cuda:0"),) * s,), False
+
+
+def _call_peak(fn, devices):
+    """fn()'s result and each device's peak memory during it, in GiB above
+    what the device held before the call."""
+    devices = list(dict.fromkeys(devices))
+    base = {}
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
+    out = fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return out, {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 2**30
+                 for d in devices}
+
+
+def _spatial_times(name, fn, devices):
+    """wall ms of one call (host clock, synchronised), device ms a call
+    (CUDA events on each device, the longest), the host's enqueue ms and
+    the calls that made the host wait for a device."""
+    devices = list(dict.fromkeys(devices))
+    syncs = _host_syncs(fn)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    dev_ms, enq = _par_ms(fn, devices, SPATIAL_ITERS)
+    return f"{name} wall {wall * 1e3:.1f} ms, device {dev_ms:.1f} ms, " \
+        f"enqueue {enq:.1f} ms a call (calls that wait for the device: " \
+        f"{syncs or 'none'})"
+
+
+def phase_spatial(ops, model, device, gen, smi):
+    """Phase 14: parallel_stylize and parallel_stylize_factored with
+    spatial=True on a (1, S) mesh for S = 2 and 4, full-depth PHOTO_CONFIG
+    in float32 (TF32 off) on phase 8's 3840x2160 content and 1024x576
+    style, against the single-device programs; the round trip through
+    the row shards; halo bytes, times and peak memory."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.parallel import (
+        decode_rows,
+        encode_rows,
+        gather,
+        parallel_stylize,
+        parallel_stylize_factored,
+        replicate,
+        shard_batch,
+    )
+
+    t0 = time.perf_counter()
+    cfg, net = model.cfg, model.net
+    h, w = ULTRA_HW
+    content = _frames(gen, 1, ULTRA_HW, device)
+    style = _frames(gen, 1, ULTRA_STYLE, device)
+    ops.reset_launch_counts()
+    whole, peak_whole = _call_peak(lambda: model.stylize(content, style),
+                                   [device])
+    ls, mu = cwct.style_factors(net.encode(style))
+    one_fac = parallel_stylize_factored((device,), cfg)
+    fac = gather(one_fac(net, content, ls, mu))
+    print(f"spatial single device {w}x{h} float32: "
+          + _spatial_times("stylize", lambda: model.stylize(content, style),
+                           [device])
+          + "; " + _spatial_times("factored", lambda: one_fac(
+              net, content, ls, mu), [device])
+          + f"; stylize peak {peak_whole[device]:.2f} GiB [{smi}]")
+    for s in SPATIAL_S:
+        grid, distinct = _spatial_grid(s)
+        devices = grid[0]
+        if not distinct:
+            print(f"spatial S={s}: one card on this host: {s} replicas on "
+                  f"it, so no halo row crosses a link, the shards run one "
+                  f"after another on one stream, and the peak and the time "
+                  f"say nothing about scaling over cards")
+        plain = parallel_stylize(grid, cfg, spatial=True)
+        factored = parallel_stylize_factored(grid, cfg, spatial=True)
+        with _HaloProbe() as probe:
+            out, peak = _call_peak(lambda: gather(plain(net, content, style),
+                                                  device), devices)
+        err = _max_err(out, whole)
+        del out
+        out = gather(factored(net, content, ls, mu), device)
+        err_f = _max_err(out, fac)
+        del out
+        print(f"gate spatial S={s} {w}x{h} float32: parallel_stylize vs "
+              f"model.stylize max abs err {err:.3e}, "
+              f"parallel_stylize_factored vs the single-device factored "
+              f"program {err_f:.3e} (<= {SPATIAL_TOL})")
+        if not (err <= SPATIAL_TOL and err_f <= SPATIAL_TOL):
+            raise AssertionError(f"spatial S={s}: errors {err}, {err_f}")
+        nets = replicate(devices, net)
+        zs = encode_rows(nets, shard_batch(grid, content, spatial=True)[0])
+        back = gather([decode_rows(nets, zs)], device)
+        p = _psnr(back, content)
+        del zs, back
+        print(f"gate spatial S={s} round trip decode_rows(encode_rows(x)): "
+              f"PSNR {p:.2f} dB (> {SPATIAL_ROUND_TRIP_DB})")
+        if not p > SPATIAL_ROUND_TRIP_DB:
+            raise AssertionError(f"spatial S={s} round trip {p}")
+        print(f"spatial S={s} on {', '.join(map(str, devices))}: "
+              + _spatial_times("stylize", lambda: plain(net, content, style),
+                               devices)
+              + "; " + _spatial_times("factored", lambda: factored(
+                  net, content, ls, mu), devices)
+              + f"; halo {probe.bytes} bytes a stylize call ("
+              f"{probe.bytes / 2**20:.1f} MiB); stylize peak "
+              + ", ".join(f"{d} {g:.2f} GiB" for d, g in peak.items())
+              + f" beside {peak_whole[device]:.2f} GiB on one device "
+              f"[{smi}]")
+    launched = _nonzero(ops.launch_counts())
+    if launched:
+        raise AssertionError(f"spatial: the standard path launched "
+                             f"{launched}")
+    print(f"phase spatial: {time.perf_counter() - t0:.1f} s; no kernel of "
+          f"the port on this path (launches {launched or 'none'})")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -3755,6 +3934,8 @@ def main():
     print(f"phase parallel done at {time.perf_counter() - t0:.1f} s")
     phase_native(model, seg, device, gen, smi)
     print(f"phase native done at {time.perf_counter() - t0:.1f} s")
+    phase_spatial(ops, model, device, gen, smi)
+    print(f"phase spatial done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

@@ -146,9 +146,15 @@ def test_init_distributed_needs_the_environment(monkeypatch):
 
 
 def test_make_mesh(monkeypatch):
-    assert make_mesh(2, device_type="cpu") == (torch.device("cpu"),) * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(2, axes=("data", "spatial"), device_type="cpu")
+    cpu = torch.device("cpu")
+    assert make_mesh(2, device_type="cpu") == (cpu,) * 2
+    # the 2-D mesh: JAX's grid, n // spatial data rows of spatial devices
+    assert make_mesh(4, axes=("data", "spatial"), spatial=2,
+                     device_type="cpu") == ((cpu, cpu), (cpu, cpu))
+    assert make_mesh(4, axes=("data", "spatial"), spatial=4,
+                     device_type="cpu") == ((cpu,) * 4,)
+    with pytest.raises(ValueError, match="divisible"):
+        make_mesh(6, axes=("data", "spatial"), spatial=4, device_type="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         make_mesh()

@@ -219,6 +219,68 @@ def transfer(content_feat, style_feat, eps: float = EPS_DEFAULT,
 
 
 # ---------------------------------------------------------------------------
+# Row shards: an NHWC latent split over rows onto several devices
+# (parallel/halo.py, parallel/sharding.py with spatial=True)
+# ---------------------------------------------------------------------------
+
+def row_stats(shards):
+    """Mean (B, C) and covariance (B, C, C) with /(n-1) of the NHWC latent
+    that `shards` (row shards in order, one a device) make up, on the
+    first shard's device. Two passes, as the JAX package's _feat_stats
+    runs under GSPMD: the shards' sums, added on the first device, give
+    the mean; each shard's Gram of its pixels centred on that mean, added
+    there, gives the covariance. float32 with TF32 off (float64 for
+    float64 shards); n is summed from the shapes on the host."""
+    dev = shards[0].device
+    n = sum(s.shape[1] * s.shape[2] for s in shards)
+    xs = [at_least_f32(s).reshape(s.shape[0], -1, s.shape[-1])
+          for s in shards]
+    with true_f32_matmul():
+        total = xs[0].sum(dim=1)
+        for x in xs[1:]:
+            total = total + x.sum(dim=1).to(dev, non_blocking=True)
+        mean = total / n
+        gram = None
+        for x in xs:
+            xc = x - mean.to(x.device, non_blocking=True)[:, None]
+            g = torch.bmm(xc.transpose(1, 2), xc).to(dev, non_blocking=True)
+            gram = g if gram is None else gram + g
+    return mean, gram / (n - 1)
+
+
+def style_factors_rows(shards, eps: float = EPS_DEFAULT):
+    """style_factors of the NHWC latent that the row shards make up:
+    (Ls (B, C, C), mu_s (B, C)) from row_stats, on the first shard's
+    device."""
+    with true_f32_matmul():
+        mean, cov = row_stats(shards)
+        return robust_cholesky(cov, eps), mean
+
+
+def transfer_rows(shards, ls, mu_s, eps: float = EPS_DEFAULT):
+    """transfer_with_factors of the NHWC latent that the row shards make
+    up, as row shards: the content's statistics reduced over the shards
+    (row_stats), the transform (T, b) made once a sample on the first
+    shard's device (transform_from_stats), copied to every shard and
+    applied there (apply_transform). ls and mu_s (batch B or 1) lie on the
+    first shard's device."""
+    mean, cov = row_stats(shards)
+    bsz = mean.shape[0]
+    ls = ls.expand(bsz, *ls.shape[1:])
+    mu_s = mu_s.expand(bsz, *mu_s.shape[1:])
+    t, b = map(torch.stack, zip(*(
+        transform_from_stats(mean[i], cov[i], ls[i], mu_s[i], eps)
+        for i in range(bsz))))
+    out = []
+    for s in shards:
+        tk = t.to(s.device, non_blocking=True)
+        bk = b.to(s.device, non_blocking=True)
+        out.append(torch.cat([apply_transform(s[i:i + 1], tk[i], bk[i])
+                              for i in range(bsz)]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Streaming statistics: the ultra-resolution tiler (models/ultra.py)
 # ---------------------------------------------------------------------------
 

@@ -16,7 +16,9 @@ inside. The modules are laid out so that the reference checkpoint keys
 semantics (forward = split, blocks, merge, pixel shuffles; inverse = its
 exact algebraic inverse), not the reference package's forward/inverse mixup.
 
-Two entry pairs share one implementation. `encode`/`decode` are the
+Two entry pairs share one implementation, a walk over a list of row
+shards (one shard: the whole image; parallel/halo.py walks an image split
+over the rows of several devices). `encode`/`decode` are the
 inference path: they build no autograd graph and round as the fast path's
 kernels do (ops/pad_conv.residual_branch_nchw). `forward` (also `net(x)`)
 and `inverse` are the training path: differentiable, every conv in the
@@ -89,22 +91,42 @@ class ChannelReduction(nn.Module):
             for _ in range(cfg.reduction_blocks))
 
 
-def _block_forward(x1, x2, block: ResidualBlock, branch):
+def _each(fn, xs):
+    return [fn(x) for x in xs]
+
+
+def _whole_image(branch):
+    """`branch` (x, weights, stride) -> F(x) as a branch of the walk: a
+    list of one shard, the whole image, and its one weight set."""
+    def run(xs, weights, stride):
+        return [branch(xs[0], weights[0], stride)]
+    return run
+
+
+def _block_forward(x1, x2, blocks, branch):
     """(x1, x2) -> (x2, F(x2) + x1); stride 2 space-to-depths both streams
-    before the add. `branch` computes F from (x, weights, stride)."""
-    fx2 = branch(x2, block.weights(), block.stride)
-    if block.stride == 2:
-        x1, x2 = pixel_unshuffle(x1), pixel_unshuffle(x2)
-    return x2, (fx2 + at_least_f32(x1)).to(x1.dtype)
+    before the add. Streams are lists of row shards, `blocks` the block's
+    copy beside each shard; `branch` computes F of every shard from (x2's
+    shards, each copy's weights, stride)."""
+    stride = blocks[0].stride
+    fx2 = branch(x2, [b.weights() for b in blocks], stride)
+    if stride == 2:
+        x1, x2 = _each(pixel_unshuffle, x1), _each(pixel_unshuffle, x2)
+    return x2, [(f + at_least_f32(a)).to(a.dtype) for f, a in zip(fx2, x1)]
 
 
-def _block_inverse(y1, y2, block: ResidualBlock, branch):
-    x2 = pixel_shuffle(y1) if block.stride == 2 else y1
-    x1 = (at_least_f32(y2) - branch(x2, block.weights(), block.stride)).to(
-        y2.dtype)
-    if block.stride == 2:
-        x1 = pixel_shuffle(x1)
+def _block_inverse(y1, y2, blocks, branch):
+    stride = blocks[0].stride
+    x2 = _each(pixel_shuffle, y1) if stride == 2 else y1
+    fx2 = branch(x2, [b.weights() for b in blocks], stride)
+    x1 = [(at_least_f32(a) - f).to(a.dtype) for f, a in zip(fx2, y2)]
+    if stride == 2:
+        x1 = _each(pixel_shuffle, x1)
     return x1, x2
+
+
+_NCHW = _whole_image(residual_branch_nchw)
+_NATIVE = _whole_image(residual_branch_native)
 
 
 class RevResNet(nn.Module):
@@ -137,38 +159,57 @@ class RevResNet(nn.Module):
                 conv.bias.zero_()
         return self
 
-    def _step(self, fn, x1, x2, block, branch):
+    def _step(self, fn, x1, x2, blocks, branch):
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, x1, x2, block, branch, use_reentrant=False)
-        return fn(x1, x2, block, branch)
+            return checkpoint(fn, x1, x2, blocks, branch, use_reentrant=False)
+        return fn(x1, x2, blocks, branch)
 
-    def _encode(self, x, branch):
+    def _copies(self, replicas, n):
+        """Each block as a tuple of its copies beside n shards: the
+        replicas' blocks, or this net's for every shard."""
+        nets = replicas or (self,) * n
+        return list(zip(*(net.blocks() for net in nets)))
+
+    def _encode(self, xs, branch, replicas=None):
+        """The encode walk over xs, an image batch (B, H, W, 3) as a list
+        of row shards in row order (one shard: the whole image). Every
+        step but the branch is local to a shard; replicas[k] holds the
+        weights beside shard k (default: this net for every shard)."""
         cfg = self.cfg
         ds = cfg.down_scale
-        if x.shape[1] % ds or x.shape[2] % ds:
-            raise ValueError(
-                f"encode: spatial dims {x.shape[1]}x{x.shape[2]} must be "
-                f"multiples of {ds}; pad the input first")
-        x = injective_pad(x.permute(0, 3, 1, 2), cfg.inj_pad)
-        x1, x2 = channel_split(x)
+        for x in xs:
+            if x.shape[1] % ds or x.shape[2] % ds:
+                raise ValueError(
+                    f"encode: spatial dims {x.shape[1]}x{x.shape[2]} must "
+                    f"be multiples of {ds}; pad the input first")
+        x = [injective_pad(x.permute(0, 3, 1, 2), cfg.inj_pad) for x in xs]
+        x1, x2 = map(list, zip(*_each(channel_split, x)))
         # channel reduction: merge + split of equal halves is the identity
-        for block in self.blocks():
-            x1, x2 = self._step(_block_forward, x1, x2, block, branch)
-        x = channel_merge(x1, x2)
-        for _ in range(cfg.sp_steps):
-            x = pixel_shuffle(x)
-        return x.permute(0, 2, 3, 1)
+        for blocks in self._copies(replicas, len(xs)):
+            x1, x2 = self._step(_block_forward, x1, x2, blocks, branch)
+        out = []
+        for a, b in zip(x1, x2):
+            x = channel_merge(a, b)
+            for _ in range(cfg.sp_steps):
+                x = pixel_shuffle(x)
+            out.append(x.permute(0, 2, 3, 1))
+        return out
 
-    def _decode(self, z, branch):
+    def _decode(self, zs, branch, replicas=None):
+        """The decode walk over zs, a latent as a list of row shards, as
+        in _encode."""
         cfg = self.cfg
-        x = z.permute(0, 3, 1, 2)
-        for _ in range(cfg.sp_steps):
-            x = pixel_unshuffle(x)
-        x1, x2 = channel_split(x)
-        for block in reversed(self.blocks()):
-            x1, x2 = self._step(_block_inverse, x1, x2, block, branch)
-        x = injective_unpad(channel_merge(x1, x2), cfg.inj_pad)
-        return x.permute(0, 2, 3, 1)
+        x = []
+        for z in zs:
+            z = z.permute(0, 3, 1, 2)
+            for _ in range(cfg.sp_steps):
+                z = pixel_unshuffle(z)
+            x.append(z)
+        x1, x2 = map(list, zip(*_each(channel_split, x)))
+        for blocks in reversed(self._copies(replicas, len(zs))):
+            x1, x2 = self._step(_block_inverse, x1, x2, blocks, branch)
+        return [injective_unpad(channel_merge(a, b), cfg.inj_pad)
+                .permute(0, 2, 3, 1) for a, b in zip(x1, x2)]
 
     @torch.no_grad()
     def encode(self, x):
@@ -176,17 +217,17 @@ class RevResNet(nn.Module):
 
         H and W must be multiples of cfg.down_scale (= 4). Builds no
         autograd graph."""
-        return self._encode(x, residual_branch_nchw)
+        return self._encode([x], _NCHW)[0]
 
     @torch.no_grad()
     def decode(self, z):
         """Latent -> image; the exact inverse of `encode`."""
-        return self._decode(z, residual_branch_nchw)
+        return self._decode([z], _NCHW)[0]
 
     def forward(self, x):
         """Differentiable encode for training, every conv in x's dtype."""
-        return self._encode(x, residual_branch_native)
+        return self._encode([x], _NATIVE)[0]
 
     def inverse(self, z):
         """Differentiable decode for training; the inverse of `forward`."""
-        return self._decode(z, residual_branch_native)
+        return self._decode([z], _NATIVE)[0]

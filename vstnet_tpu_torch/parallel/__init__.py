@@ -4,8 +4,14 @@ per device for training. The JAX package's NamedSharding helpers
 (`replicated`, `batch_sharded`, `spatial_sharded`) have no counterpart:
 `replicate` and `shard_batch` place the data themselves, and
 `parallel_train_step` stands for `make_parallel_train_step` and
-`make_parallel_flat_step`. Row (spatial) sharding is not ported."""
+`make_parallel_flat_step`. Row (spatial) sharding of the standard path
+(`spatial=True` on a ("data", "spatial") mesh) places its halo exchanges
+itself (parallel/halo.py); its training forms are not ported."""
 
+from vstnet_tpu_torch.parallel.halo import (  # noqa: F401
+    decode_rows,
+    encode_rows,
+)
 from vstnet_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from vstnet_tpu_torch.parallel.sharding import (  # noqa: F401
     Replicated,

@@ -23,10 +23,21 @@ programs) place the work; here it is placed by hand, in PyTorch's idiom:
     not fit: `loss_and_grads` runs 5-7 passes of the same parameters
     before its single backward.
 
+  * row (spatial) sharding, on a 2-D ("data", "spatial") mesh, runs the
+    standard float32 path of parallel_stylize and
+    parallel_stylize_factored with spatial=True: the batch split over the
+    data rows, each image's rows over a data row's devices, a halo
+    exchange before each conv (parallel/halo.py) and the cWCT statistics
+    reduced over the row shards on the row's first device
+    (models/cwct.row_stats). The fused programs run on a 1-D mesh only:
+    the JAX package shard_maps them over "data" alone, since XLA cannot
+    partition a Pallas call, and would only repeat their work along
+    "spatial".
+
 The programs are the single-device ones of models/pipeline.py, looked up
 when a parallel function is made, not copies of them. A mesh is the tuple
-of devices of mesh.make_mesh; two entries may name one device (two
-replicas on one card). Row (spatial) sharding is not ported.
+of devices of mesh.make_mesh, or its tuple of data rows; two entries may
+name one device (replicas on one card).
 """
 
 from __future__ import annotations
@@ -132,27 +143,52 @@ class _ReplicaCache:
         return reps
 
 
-def shard_batch(devices: Sequence[torch.device], x):
-    """x (B, ...) split on its first axis into len(devices) contiguous
-    equal shards, shard i copied to devices[i] (asynchronously from pinned
-    memory). A list or tuple of shards, one per device, is returned as a
-    list. Raises when B does not divide."""
+def _is_grid(mesh) -> bool:
+    return bool(mesh) and isinstance(mesh[0], (tuple, list))
+
+
+def _split(x, dim: int, n: int, what: str):
+    if x.shape[dim] % n:
+        raise ValueError(f"shard_batch: {what} {x.shape[dim]} not "
+                         f"divisible by {n} devices")
+    return x.split(x.shape[dim] // n, dim=dim)
+
+
+def shard_batch(mesh, x, spatial: bool = False):
+    """x (B, ...) split on its first axis into len(mesh) contiguous equal
+    shards, shard i copied to mesh[i] (asynchronously from pinned memory).
+    A list or tuple of shards, one per device, is returned as a list.
+
+    spatial=True, on a 2-D mesh: x (B, H, W, C) split on B over the data
+    rows, then each part on H over its row's devices; returns a list of
+    data rows, each a list of row shards (a nested list of shards is
+    returned as such). Raises when B or H does not divide."""
+    grid = _is_grid(mesh)
+    if spatial != grid:
+        raise ValueError("shard_batch: spatial=True goes with a 2-D "
+                         "('data', 'spatial') mesh, and only with one")
     if isinstance(x, (list, tuple)):
-        if len(x) != len(devices):
-            raise ValueError(f"shard_batch: {len(x)} shards for "
-                             f"{len(devices)} devices")
-        return list(x)
-    n = len(devices)
-    if x.shape[0] % n:
-        raise ValueError(f"shard_batch: batch {x.shape[0]} not divisible "
-                         f"by {n} devices")
-    return [s.to(d, non_blocking=True)
-            for s, d in zip(x.split(x.shape[0] // n), devices)]
+        if len(x) != len(mesh) or (grid and any(
+                len(r) != len(row) for r, row in zip(x, mesh))):
+            raise ValueError(f"shard_batch: shards {x} do not match the "
+                             f"mesh {mesh}")
+        return [list(r) for r in x] if grid else list(x)
+    parts = _split(x, 0, len(mesh), "batch")
+    if not grid:
+        return [s.to(d, non_blocking=True) for s, d in zip(parts, mesh)]
+    return [[s.to(d, non_blocking=True)
+             for s, d in zip(_split(p, 1, len(row), "height"), row)]
+            for p, row in zip(parts, mesh)]
 
 
 def gather(shards, device=None):
     """The shards joined in order on `device` (default: the first shard's)
-    into one batch."""
+    into one batch; a 2-D mesh's result (data rows of row shards) is
+    joined on H within each data row, then on B."""
+    if isinstance(shards[0], (list, tuple)):
+        device = shards[0][0].device if device is None else device
+        return torch.cat([torch.cat([s.to(device) for s in row], dim=1)
+                          for row in shards])
     device = shards[0].device if device is None else torch.device(device)
     return torch.cat([s.to(device) for s in shards])
 
@@ -165,6 +201,11 @@ def map_shards(devices: Sequence[torch.device], local_fn,
     results in the devices' order: a list, or a tuple of lists when
     local_fn returns a tuple. Every shard is enqueued before the next
     device's; nothing is read back."""
+    if _is_grid(devices):
+        raise ValueError(
+            "a 2-D ('data', 'spatial') mesh shards rows, which only "
+            "parallel_stylize and parallel_stylize_factored do, with "
+            "spatial=True; the other parallel programs take a 1-D mesh")
     devices = tuple(torch.device(d) for d in devices)
     if not devices:
         raise ValueError("map_shards: no devices")
@@ -188,28 +229,80 @@ def map_shards(devices: Sequence[torch.device], local_fn,
 # Data-parallel inference
 # ---------------------------------------------------------------------------
 
-def parallel_stylize(devices, cfg: RevResNetConfig):
+def _map_rows(mesh, local_fn, sharded: Sequence[int] = (1,)):
+    """fn(*args) running local_fn once per data row of a 2-D mesh: the
+    arguments at the positions in `sharded` split by
+    shard_batch(spatial=True) (or given as its nested shards), the others
+    replicated (copies cached per object); local_fn gets, for each
+    argument, the list of its row shards or of its copies beside them.
+    Returns the data rows' results in order; nothing is read back."""
+    if not _is_grid(mesh):
+        raise ValueError("spatial=True needs a 2-D ('data', 'spatial') "
+                         "mesh: make_mesh(n, ('data', 'spatial'), "
+                         "spatial=S)")
+    grid = tuple(tuple(torch.device(d) for d in row) for row in mesh)
+    cache = _ReplicaCache(tuple(itertools.chain(*grid)))
+
+    def fn(*args):
+        per_arg = []
+        for i, a in enumerate(args):
+            if i in sharded:
+                per_arg.append(shard_batch(grid, a, spatial=True))
+            else:
+                reps = iter(cache(a))
+                per_arg.append([[next(reps) for _ in row] for row in grid])
+        return [local_fn(*(a[r] for a in per_arg))
+                for r in range(len(grid))]
+
+    return fn
+
+
+def parallel_stylize(mesh, cfg: RevResNetConfig, spatial: bool = False):
     """fn(net, content, style) -> shards of decode(cWCT(encode(content),
     encode(style))) on the float32 standard path, content and style both
     split over the devices (their batches match), the RevResNet
-    replicated. cfg is the net's own (kept for the JAX signature)."""
-    from vstnet_tpu_torch.models import pipeline
+    replicated. cfg is the net's own (kept for the JAX signature).
 
-    return map_shards(devices, pipeline.stylize, sharded=(1, 2))
+    spatial=True, on a 2-D mesh: the batches split over the data rows and
+    each image's rows over a row's devices (parallel/halo.py); the style's
+    and the content's cWCT statistics reduced over the row shards
+    (cwct.row_stats). Returns data rows of row shards (`gather` joins
+    them)."""
+    from vstnet_tpu_torch.models import cwct, pipeline
+    from vstnet_tpu_torch.parallel.halo import decode_rows, encode_rows
+
+    if not spatial:
+        return map_shards(mesh, pipeline.stylize, sharded=(1, 2))
+
+    def local(nets, content, style):
+        z_c = encode_rows(nets, content)
+        ls, mu = cwct.style_factors_rows(encode_rows(nets, style))
+        return decode_rows(nets, cwct.transfer_rows(z_c, ls, mu))
+
+    return _map_rows(mesh, local, sharded=(1, 2))
 
 
-def parallel_stylize_factored(devices, cfg: RevResNetConfig):
+def parallel_stylize_factored(mesh, cfg: RevResNetConfig,
+                              spatial: bool = False):
     """fn(net, frames, ls, mu_s) -> shards of the standard path's frames
     clamped to [0,1], stylized against one style's factors
-    (cwct.style_factors), which are replicated with the net."""
+    (cwct.style_factors), which are replicated with the net. spatial=True
+    shards rows on a 2-D mesh, as parallel_stylize does."""
     from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.parallel.halo import decode_rows, encode_rows
 
     @torch.no_grad()
     def local(net, frames, ls, mu_s):
         z_cs = cwct.transfer_with_factors(net.encode(frames), ls, mu_s)
         return net.decode(z_cs).clamp(0.0, 1.0)
 
-    return map_shards(devices, local)
+    def local_rows(nets, frames, ls, mu_s):
+        z_cs = cwct.transfer_rows(encode_rows(nets, frames), ls[0], mu_s[0])
+        return [x.clamp(0.0, 1.0) for x in decode_rows(nets, z_cs)]
+
+    if spatial:
+        return _map_rows(mesh, local_rows)
+    return map_shards(mesh, local)
 
 
 def parallel_stylize_fused(devices, cfg: RevResNetConfig,
