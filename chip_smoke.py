@@ -3,10 +3,11 @@
 Drives the port's two video paths (vstnet_tpu_torch), its two CLIs, the
 ultra-resolution tiler, the HTTP style service, the trainer, GGUF weights,
 the smoke CLI, the export artifacts, the data-parallel layer, the
-native tier and row sharding through the entry points a user calls, at
-the full width and depth of PHOTO_CONFIG and
-SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160 images,
-1280x720 and 960x540 requests, 256x256 training crops), with random
+native tier, row sharding and the row-sharded training step through the
+entry points a user calls, at the full width and depth of PHOTO_CONFIG
+and SegFormer-B4 (512x512 frames in bf16, 1280x720 clips, 3840x2160
+images, 1280x720 and 960x540 requests, 256x256 and 1024x1024 training
+crops), with random
 weights made from a seed. Phases, in
 order; any failure raises and the process exits non-zero:
 
@@ -182,6 +183,24 @@ order; any failure raises and the process exits non-zero:
               wall, device and host enqueue ms a call, halo bytes a
               call, each card's peak memory beside the single-device
               run's, with the card's name and power limit.
+ 15. spatial train (after phase 14; no kernel of the port lies on this
+              path) the row-sharded training step:
+              parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and
+              4, over S cards or S replicas on cuda:0 (said so),
+              full-depth PHOTO_CONFIG with remat in float32 with TF32 off,
+              one 1024x1024 content and style at B=1, one step of the
+              image and of the temporal phase, each against train_step on
+              one device and the unsharded float64 gradient: cosine >
+              0.99999 and rel L2 < 1e-2 against the unsharded step, the
+              row form no further from float64 than 2x the unsharded
+              float32 step (+1e-4) over the tensors, each aux term
+              within rtol 1e-4 / atol 2e-5, the parameters after the step
+              within 3 lr (mean 1e-6); ms a step (CUDA events), host
+              enqueue ms, calls that wait for the device and each
+              device's peak memory beside the unsharded step's, with the
+              card's name and power limit; then loss_and_grads_rows in
+              bf16 against the unsharded bf16 call (cosine > 0.99); no
+              kernel of the port launched.
 
 The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
@@ -3890,6 +3909,251 @@ def phase_spatial(ops, model, device, gen, smi):
           f"the port on this path (launches {launched or 'none'})")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the row-sharded training step
+# ---------------------------------------------------------------------------
+
+# One training step, full-depth PHOTO_CONFIG with remat (the trainer's
+# default) in float32 (TF32 off), the trainer's loss weights, a 1024x1024
+# content and style at B=1, image and temporal phase, through
+# parallel_train_step(rows=...) on a (1, S) mesh against train_step on the
+# whole image on one device, with the unsharded loss_and_grads in float64
+# as the reference. Gates set from the first card run (H100 80GB HBM3,
+# 700 W; the ranges below are of three runs): the gradient's cosine
+# against the unsharded one above SPT_COS (measured 0.9999987-0.9999999)
+# and its relative L2 distance below SPT_REL_L2 (4.7e-4 to 1.7e-3; phase
+# 10's float32-vs-float64 gates).
+# Each tensor's max |dg| / max |g| against the unsharded step, the CPU
+# test's metric (1e-4 there, at SMALL's depth), is printed, not gated: at
+# full depth it reached 1.75e-2, because float32 itself lies that far
+# from float64 on tensors whose gradient the cycle term's cancellation
+# dominates (the unsharded float32 step: 1.7e-3 to 9.7e-3 of some
+# tensor's max). So the gate on tensors is against float64: over the
+# tensors, the row form's largest max |g - g64| / max |g64| within
+# SPT_F64_FACTOR times the unsharded float32 step's, plus SPT_REL
+# (measured: 0.30-1.34 times it). Each aux loss term within rtol / atol
+# (loss_rec, zero in exact arithmetic, is roundoff: up to 1.3e-7 apart
+# on 5.1e-4). The parameters after the step: Adam's first step is
+# -lr * g / (|g| + eps), so a near-zero gradient whose sign the summation
+# order flips moves by 2 lr; the largest difference within SPT_PARAM_LRS
+# lr (measured 2.0e-4), the mean within SPT_PARAM_MEAN (5.4e-8 to
+# 1.04e-7). The bf16 route against the unsharded bf16 call: cosine above
+# SPT_BF16_COS (0.9960-0.9989).
+SPT_HW = 1024
+SPT_COS = 0.99999
+SPT_REL_L2 = 1e-2
+SPT_F64_FACTOR = 2.0
+SPT_REL = 1e-4
+SPT_AUX_RTOL = 1e-4
+SPT_AUX_ATOL = 2e-5
+SPT_PARAM_LRS = 3
+SPT_PARAM_MEAN = 1e-6
+SPT_BF16_COS = 0.99
+
+
+def _spt_step(step, devices):
+    """One training step by step(): (aux, its gradients and parameters
+    after it on the host, device ms by CUDA events on each device (the
+    longest), host enqueue ms, each device's peak GiB above what it held
+    before, the calls that made the host wait for a device)."""
+    import collections
+    import os
+    import warnings
+
+    devices = list(dict.fromkeys(devices))
+    base = {}
+    ev = {}
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
+        with torch.cuda.device(d):
+            ev[d] = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            ev[d][0].record()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            aux, net = step()
+            enqueue = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for d, (_, e) in ev.items():
+        with torch.cuda.device(d):
+            e.record()
+    for _, e in ev.values():
+        e.synchronize()
+    ms = max(b.elapsed_time(e) for b, e in ev.values())
+    peak = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 2 ** 30
+            for d in devices}
+    syncs = dict(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+        if "synchroniz" in str(w.message)))
+    grads = [p.grad.detach().double().cpu() for p in net.parameters()]
+    params = [p.detach().double().cpu() for p in net.parameters()]
+    return aux, grads, params, ms, enqueue, peak, syncs
+
+
+def _spt_compare(label, aux, grads, params, ref, g64, lr):
+    """Gates of one row-sharded step against the unsharded one (ref: its
+    aux, gradients and parameters after the step) and the unsharded
+    float64 gradient g64."""
+    from vstnet_tpu_torch.train.losses import AUX_KEYS
+
+    aux_w, grads_w, params_w = ref
+
+    def rel(xs, ys):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(xs, ys))
+
+    rw, r64, w64 = rel(grads, grads_w), rel(grads, g64), rel(grads_w, g64)
+    g, w = torch.cat([x.flatten() for x in grads]), torch.cat(
+        [x.flatten() for x in grads_w])
+    cos = float(g @ w / (g.norm() * w.norm()))
+    l2 = float((g - w).norm() / w.norm())
+    bad = [k for k in AUX_KEYS[:-1] if abs(float(aux[k]) - float(aux_w[k]))
+           > SPT_AUX_ATOL + SPT_AUX_RTOL * abs(float(aux_w[k]))]
+    pd = torch.cat([(p - q).abs().flatten()
+                    for p, q in zip(params, params_w)])
+    f64_bound = SPT_F64_FACTOR * w64 + SPT_REL
+    print(f"gate {label}: grad cosine {cos:.9f} (> {SPT_COS}), rel L2 "
+          f"{l2:.3e} (< {SPT_REL_L2}); max over tensors of max |g - g64| / "
+          f"max |g64| from the float64 unsharded gradient: row form "
+          f"{r64:.3e} (<= {SPT_F64_FACTOR} x unsharded + {SPT_REL} = "
+          f"{f64_bound:.3e}), unsharded float32 {w64:.3e}; row form vs "
+          f"unsharded {rw:.3e} (printed); aux "
+          + ", ".join(f"{k} {float(aux[k]):.6g}/{float(aux_w[k]):.6g}"
+                      for k in AUX_KEYS)
+          + f" (each term rtol {SPT_AUX_RTOL}, atol {SPT_AUX_ATOL}), "
+          f"params after the step max {float(pd.max()):.3e} (<= "
+          f"{SPT_PARAM_LRS} lr = {SPT_PARAM_LRS * lr:.0e}), mean "
+          f"{float(pd.mean()):.3e} (< {SPT_PARAM_MEAN})")
+    if not (cos > SPT_COS and l2 < SPT_REL_L2 and r64 <= f64_bound
+            and not bad and float(pd.max()) <= SPT_PARAM_LRS * lr
+            and float(pd.mean()) < SPT_PARAM_MEAN):
+        raise AssertionError(f"{label}: cos {cos}, rel L2 {l2}, float64 "
+                             f"{r64} > {f64_bound}, aux {bad}, params "
+                             f"{float(pd.max())}")
+
+
+def phase_spatial_train(ops, device, gen, smi):
+    """Phase 15: parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and
+    4, full-depth PHOTO_CONFIG with remat, float32 (TF32 off), one
+    1024x1024 content and style at B=1, image and temporal phase, against
+    train_step on one device: gradients, aux, parameters after the step;
+    ms a step, host enqueue ms, peak memory a device; then the bf16 route
+    against the unsharded bf16 call (cosine)."""
+    import copy
+
+    from vstnet_tpu_torch.config import PHOTO_CONFIG
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.parallel import parallel_train_step, shard_batch
+    from vstnet_tpu_torch.train import trainer as tr
+    from vstnet_tpu_torch.train.losses import loss_and_grads, \
+        loss_and_grads_rows
+
+    t0 = time.perf_counter()
+    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
+    net.init_weights(torch.Generator().manual_seed(0))
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    batch = _train_batch(gen, 1, SPT_HW, device)
+    tc = tr.TrainConfig()
+    grids = {s: _spatial_grid(s) for s in SPATIAL_S}
+    for s, (_, distinct) in grids.items():
+        if not distinct:
+            print(f"spatial train S={s}: one card on this host: {s} "
+                  f"replicas on it, so no halo row crosses a link, the "
+                  f"shards run one after another on one stream, and the "
+                  f"peak and the time say nothing about scaling over "
+                  f"cards")
+    ops.reset_launch_counts()
+    with tr._no_tf32():
+        for temporal in (False, True):
+            phase = "temporal" if temporal else "image"
+
+            def stepper(rows):
+                state = tr.init_train_state(tc, device, copy.deepcopy(net))
+
+                def step():
+                    if rows is None:
+                        aux = tr.train_step(state, vgg, *batch[:2], tc,
+                                            *batch[2:], temporal)
+                    else:
+                        aux = parallel_train_step(
+                            state, vgg, *batch[:2], tc, *batch[2:],
+                            temporal, rows=rows)
+                    return aux, state.net
+                return step
+
+            net64 = copy.deepcopy(net).double()
+            vgg64 = copy.deepcopy(vgg).double()
+            g64, _ = loss_and_grads(net64, vgg64, *(
+                x.double() for x in batch[:2]), tc.weights, batch[2],
+                batch[3].double(), temporal, precision="f64")
+            g64 = [g.detach().cpu() for g in g64.values()]
+            del net64, vgg64
+            runs = {}
+            for s in (1,) + SPATIAL_S:
+                rows = None if s == 1 else grids[s][0][0]
+                step = stepper(rows)
+                devices = [device] if rows is None else list(rows)
+                aux, grads, params, ms, enq, peak, _ = _spt_step(step,
+                                                                 devices)
+                if s == 1:
+                    ref = (aux, grads, params)
+                else:
+                    _spt_compare(f"spatial train S={s} {SPT_HW}x{SPT_HW} "
+                                 f"float32 {phase} vs train_step on one "
+                                 f"device", aux, grads, params, ref, g64,
+                                 tc.lr)
+                del grads, params
+                _, _, _, ms2, enq2, _, syncs = _spt_step(step, devices)
+                runs[s] = (ms, enq, ms2, enq2, peak, syncs)
+            for s, (ms, enq, ms2, enq2, peak, syncs) in runs.items():
+                where = "one device" if s == 1 else (
+                    f"S={s} on {', '.join(map(str, grids[s][0][0]))}")
+                print(f"time spatial train {phase} PHOTO_CONFIG "
+                      f"{SPT_HW}x{SPT_HW} B=1 float32 remat, {where}: "
+                      f"{ms2:.1f} ms a step (first step {ms:.1f}), host "
+                      f"enqueue {enq2:.1f} ms (first {enq:.1f}; calls "
+                      f"that wait for the device: {syncs or 'none'}), peak "
+                      + ", ".join(f"{d} {g:.2f} GiB" for d, g in peak.items())
+                      + (f" beside {runs[1][4][device]:.2f} GiB on one "
+                         f"device" if s != 1 else "") + f" [{smi}]")
+        a, b, flow, noise = (x.to(torch.float32) for x in batch)
+        for temporal in (False, True):
+            ref, _ = loss_and_grads(net, vgg, a, b, tc.weights, flow, noise,
+                                    temporal, precision="bf16")
+            ref = _flat_grads(ref)
+            for s in SPATIAL_S:
+                grid = grids[s][0]
+                rows = [shard_batch(grid, x, spatial=True)[0]
+                        for x in (a, b, flow, noise)]
+                g, _ = loss_and_grads_rows(net, vgg, *rows[:2], tc.weights,
+                                           *rows[2:], temporal,
+                                           precision="bf16")
+                g = _flat_grads(g)
+                cos = float(g @ ref / (g.norm() * ref.norm()))
+                print(f"gate spatial train S={s} {SPT_HW}x{SPT_HW} bf16 "
+                      f"{'temporal' if temporal else 'image'} vs the "
+                      f"unsharded bf16 loss_and_grads: grad cosine "
+                      f"{cos:.6f} (> {SPT_BF16_COS}) [{smi}]")
+                if not (bool(torch.isfinite(g).all())
+                        and cos > SPT_BF16_COS):
+                    raise AssertionError(f"spatial train bf16 S={s}: {cos}")
+    launched = _nonzero(ops.launch_counts())
+    if launched:
+        raise AssertionError(f"spatial train: the training path launched "
+                             f"{launched}")
+    print(f"phase spatial train: {time.perf_counter() - t0:.1f} s; no "
+          f"kernel of the port on this path (launches "
+          f"{launched or 'none'}; cuDNN and cuBLAS)")
+
+
 def main():
     smi = _require_card()
     from vstnet_tpu_torch import ops
@@ -3936,6 +4200,8 @@ def main():
     print(f"phase native done at {time.perf_counter() - t0:.1f} s")
     phase_spatial(ops, model, device, gen, smi)
     print(f"phase spatial done at {time.perf_counter() - t0:.1f} s")
+    phase_spatial_train(ops, device, gen, smi)
+    print(f"phase spatial train done at {time.perf_counter() - t0:.1f} s")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

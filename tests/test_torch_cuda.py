@@ -617,3 +617,45 @@ def test_native_engine_on_card_matches_eager(dev, tmp_path):
     cpu = native.NativeEngine("cpu")
     with pytest.raises(RuntimeError, match="compiled for cuda"):
         cpu.load(pkg)
+
+
+def test_row_sharded_train_step_on_card_matches_unsharded(dev):
+    """parallel_train_step(rows=((cuda:0,) * 2)): one step of the temporal
+    phase in float32 (TF32 off) with the image's rows over two replicas
+    on the card, against train_step on the whole batch: parameters within
+    3 lr of each other at the max and 1e-6 in the mean (Adam's first
+    step turns a gradient sign flipped by the reduction order into a
+    step of 2 lr), aux rtol 1e-4 / atol 2e-5."""
+    from vstnet_tpu_torch.models.vgg import VGG
+    from vstnet_tpu_torch.ops.warp import generate_fake_flow
+    from vstnet_tpu_torch.parallel import parallel_train_step
+    from vstnet_tpu_torch.train import trainer as tr
+    from vstnet_tpu_torch.train.losses import LossWeights
+
+    cfg = RevResNetConfig(n_blocks=(1, 1, 1), hidden_dim=16, sp_steps=2)
+    tc = tr.TrainConfig(weights=LossWeights(lap=10.0))
+    net = RevResNet(cfg, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    vgg = VGG(device=dev).init_weights(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    a, s = (torch.from_numpy(rng.uniform(size=(2, 32, 32, 3)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    flow = torch.from_numpy(np.stack([generate_fake_flow(rng, 32, 32)
+                                      for _ in range(2)])).to(dev)
+    noise = torch.from_numpy((rng.normal(size=(2, 32, 32, 3)) * 1e-3)
+                             .astype(np.float32)).to(dev)
+    states = [tr.init_train_state(tc, dev, RevResNet(cfg, device=dev))
+              for _ in range(2)]
+    for st in states:
+        st.net.load_state_dict(net.state_dict())
+    with tr._no_tf32():
+        want = tr.train_step(states[0], vgg, a, s, tc, flow, noise, True)
+        got = parallel_train_step(states[1], vgg, a, s, tc, flow, noise,
+                                  True, rows=(dev, dev))
+    for k, v in got.items():
+        np.testing.assert_allclose(float(v), float(want[k]), rtol=1e-4,
+                                   atol=2e-5, err_msg=k)
+    diff = torch.cat([(p - q).detach().abs().flatten() for p, q in zip(
+        states[1].net.parameters(), states[0].net.parameters())])
+    assert float(diff.max()) <= 3 * tc.lr
+    assert float(diff.mean()) < 1e-6

@@ -287,22 +287,24 @@ def transfer_rows(shards, ls, mu_s, eps: float = EPS_DEFAULT):
 def transform_from_stats(mean_c, cov_c, ls, mu_s, eps: float = EPS_DEFAULT):
     """(T (C, C), b (C,)) of the global transfer from precomputed content
     statistics and style factors: T = Ls Lc^{-1}, b = mu_s - T mu_c, in
-    float32 with TF32 off. The statistics may come from moments summed
-    over tiles (models/ultra.py)."""
+    float32 with TF32 off (float64 for float64 statistics). The
+    statistics may come from moments summed over tiles (models/ultra.py)
+    or from row shards (row_stats)."""
     with true_f32_matmul():
-        lc = robust_cholesky(cov_c.float(), eps)
-        t = ls.float() @ _inv_lower(lc)
-        b = mu_s.float() - t @ mean_c.float()
+        lc = robust_cholesky(at_least_f32(cov_c), eps)
+        t = ls.to(lc.dtype) @ _inv_lower(lc)
+        b = mu_s.to(lc.dtype) - t @ mean_c.to(lc.dtype)
     return t, b
 
 
 def apply_transform(feat, t, b):
     """y = x T^T + b on every pixel of an NHWC latent, summed in float32
-    (TF32 off) and returned in the latent's dtype."""
+    (TF32 off; float64 for a float64 latent) and returned in the latent's
+    dtype."""
     shape = feat.shape
-    x = feat.reshape(-1, shape[-1]).float()
+    x = at_least_f32(feat.reshape(-1, shape[-1]))
     with true_f32_matmul():
-        y = x @ t.float().t() + b.float()
+        y = x @ t.to(x.dtype).t() + b.to(x.dtype)
     return y.reshape(shape).to(feat.dtype)
 
 

@@ -100,11 +100,11 @@ def calc_mean_std(feat, eps: float = 1e-5):
     return feat.mean(dim=(2, 3)), var.sqrt()
 
 
-def style_loss(stylized_feats, style_feats):
+def style_loss(stylized_feats, style_feats, mean_std=calc_mean_std):
     loss = 0.0
     for sf, tf in zip(stylized_feats, style_feats):
-        sm, ss = calc_mean_std(sf)
-        tm, ts = calc_mean_std(tf)
+        sm, ss = mean_std(sf)
+        tm, ts = mean_std(tf)
         loss = loss + ((sm - tm) ** 2).mean() + ((ss - ts) ** 2).mean()
     return loss
 
@@ -129,6 +129,91 @@ def vgg_losses(vgg: VGG, content, style, stylized, n_layer: int = 4,
         loss_c = content_loss(stylized_feats[3], cf)
     else:
         loss_c = torch.zeros((), device=stylized.device)
+    return loss_c, loss_s
+
+
+# ---------------------------------------------------------------------------
+# Row shards: an image split over rows onto several devices (the row form
+# of the training step, train/losses.py)
+# ---------------------------------------------------------------------------
+
+def _check_rows(shards, n_layer: int) -> None:
+    """Raise ValueError unless every shard's rows are a multiple of 2**p,
+    p the pools before relu{n_layer}_1, with at least 2 rows at 1/2**p,
+    where reflect needs 2: then each pool runs on a shard alone."""
+    k = 2 ** sum(p < _CAPTURE_IDX[n_layer - 1] for p in _POOL_IDX)
+    for x in shards:
+        if x.shape[1] % k or x.shape[1] // k < 2:
+            raise ValueError(
+                f"VGG row sharding: {len(shards)} shards of {x.shape[1]} "
+                f"image rows; each must hold a multiple of {k} rows and at "
+                f"least {2 * k} (the image's height a multiple of "
+                f"{len(shards) * k}, at least {2 * len(shards) * k})")
+
+
+def features_rows(vgg: VGG, shards, n_layer: int = 4):
+    """VGG.features of the image that `shards` (NHWC row shards in row
+    order, one a device) make up: [relu1_1, ..., relu{n_layer}_1], each a
+    list of NCHW row shards. Each ReflectionPad2d becomes the halo pad of
+    parallel/halo.py (the neighbours' rows inside, reflect at the image's
+    top and bottom and in width); the convs run on the weights cast to
+    the shards' dtype and copied to each shard's device; ReLUs and pools
+    are local."""
+    from vstnet_tpu_torch.parallel.halo import _halo_pad
+
+    _check_rows(shards, n_layer)
+    xs = [s.permute(0, 3, 1, 2) for s in shards]
+    dt = xs[0].dtype
+    feats = []
+    for i, layer in enumerate(vgg):
+        if isinstance(layer, nn.Conv2d):
+            w, b = layer.weight.to(dt), layer.bias.to(dt)
+            xs = [F.conv2d(x, w.to(x.device), b.to(x.device)) for x in xs]
+        elif isinstance(layer, nn.ReflectionPad2d):
+            xs = _halo_pad(xs, 1)
+        else:
+            xs = [layer(x) for x in xs]
+        if i in _CAPTURE_IDX:
+            feats.append(xs)
+            if len(feats) == n_layer:
+                break
+    return feats
+
+
+def mean_std_rows(feats, eps: float = 1e-5):
+    """calc_mean_std of the NCHW feature that the row shards make up, on
+    the first shard's device, in two passes: the shards' sums give the
+    mean, then their sums of squares centred on it give the unbiased
+    variance over the global pixel count."""
+    dev = feats[0].device
+    n = sum(f.shape[2] * f.shape[3] for f in feats)
+    fs = [at_least_f32(f) for f in feats]
+    mean = sum(f.sum(dim=(2, 3)).to(dev) for f in fs) / n
+    ss = sum((f - mean.to(f.device)[:, :, None, None]).square()
+             .sum(dim=(2, 3)).to(dev) for f in fs)
+    return mean, (ss / (n - 1) + eps).sqrt()
+
+
+def vgg_losses_rows(vgg: VGG, content, style, stylized, n_layer: int = 4,
+                    content_weight: float = 0.0):
+    """vgg_losses of the images that the row shards make up (each a list
+    of NHWC shards on one data row's devices), on the first shard's
+    device: the style loss from mean_std_rows, the content loss a sum
+    over the shards divided by the global count."""
+    with torch.no_grad():
+        style_feats = features_rows(vgg, style, n_layer)
+    stylized_feats = features_rows(vgg, stylized, n_layer)
+    loss_s = style_loss(stylized_feats, style_feats, mean_std_rows)
+    dev = stylized[0].device
+    if content_weight > 0:
+        with torch.no_grad():
+            cf = features_rows(vgg, content, 4)[-1]
+        sf = stylized_feats[3]
+        loss_c = sum(((at_least_f32(a) - at_least_f32(b)) ** 2).sum()
+                     .to(dev) for a, b in zip(sf, cf)) / sum(
+                         a.numel() for a in sf)
+    else:
+        loss_c = torch.zeros((), device=dev)
     return loss_c, loss_s
 
 

@@ -90,3 +90,33 @@ def matting_loss_and_grad(image, x, eps: float = 1e-7):
         per_sample = matting_laplacian_quadform(image.detach(), xx, eps) / hw
         (grad,) = torch.autograd.grad(per_sample.sum(), xx)
     return per_sample.detach(), grad
+
+
+def matting_loss_and_grad_rows(images, xs, eps: float = 1e-7):
+    """matting_loss_and_grad of the images that the NHWC row shards make
+    up (one data row's devices, in row order): (per-sample x^T L x / HW
+    (B,) on the first shard's device, [2 L x / HW of each shard]), H*W the
+    whole image's.
+
+    Each VALID 3x3 window belongs to the shard that holds its top row, so
+    a shard other than the last takes the first 2 rows of the next shard
+    (of the image and of x) below its own, and the shards' windows are
+    the whole image's, once each. The gradient is autograd of the summed
+    forms: the cotangent of a borrowed row goes back through the copy to
+    the shard that owns it."""
+    hw = sum(x.shape[1] for x in xs) * xs[0].shape[2]
+    dev = xs[0].device
+    last = len(xs) - 1
+    with torch.enable_grad():
+        leaves = [at_least_f32(x.detach()).requires_grad_(True) for x in xs]
+        total = 0.0
+        for k, (img, x) in enumerate(zip(images, leaves)):
+            img = img.detach()
+            if k < last:
+                img = torch.cat([img, images[k + 1][:, :2].detach().to(
+                    img.device)], dim=1)
+                x = torch.cat([x, leaves[k + 1][:, :2].to(x.device)], dim=1)
+            total = total + matting_laplacian_quadform(img, x, eps).to(dev)
+        per_sample = total / hw
+        grads = torch.autograd.grad(per_sample.sum(), leaves)
+    return per_sample.detach(), list(grads)

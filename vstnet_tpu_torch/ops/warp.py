@@ -17,12 +17,18 @@ import numpy as np
 import torch
 
 
-def flow_warp_nearest(x, flow):
+def flow_warp_nearest(x, flow, row0: int = 0):
     """x (B, H, W, C); flow (B, H, W, 2) float32, channel 0 the x
-    displacement. Differentiable in x (a gather)."""
+    displacement. Differentiable in x (a gather).
+
+    flow may also be a band of rows, (B, L, W, 2) for the output rows
+    [row0, row0 + L) of the frame x (a row shard's): the pixel grid is
+    built from those global rows and normalised by the whole frame's H,
+    so that every position rounds as on the whole frame."""
     b, h, w, _ = x.shape
     xx = torch.arange(w, dtype=torch.float32, device=x.device)[None, None, :]
-    yy = torch.arange(h, dtype=torch.float32, device=x.device)[None, :, None]
+    yy = torch.arange(row0, row0 + flow.shape[1], dtype=torch.float32,
+                      device=x.device)[None, :, None]
     vx = xx - flow[..., 0]
     vy = yy - flow[..., 1]
     gx = 2.0 * vx / max(w - 1, 1) - 1.0

@@ -6,11 +6,15 @@ per device for training. The JAX package's NamedSharding helpers
 `parallel_train_step` stands for `make_parallel_train_step` and
 `make_parallel_flat_step`. Row (spatial) sharding of the standard path
 (`spatial=True` on a ("data", "spatial") mesh) places its halo exchanges
-itself (parallel/halo.py); its training forms are not ported."""
+itself (parallel/halo.py); the training step's row form, their
+`spatial=True`, is `parallel_train_step(..., rows=...)`, one rank a data
+row, over `forward_rows` / `inverse_rows`."""
 
 from vstnet_tpu_torch.parallel.halo import (  # noqa: F401
     decode_rows,
     encode_rows,
+    forward_rows,
+    inverse_rows,
 )
 from vstnet_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from vstnet_tpu_torch.parallel.sharding import (  # noqa: F401

@@ -29,6 +29,16 @@ the walk (channel split and merge, the injective pad, the pixel
 multiple of cfg.down_scale. All shards pass through a conv, one conv at a
 time, before the next starts.
 
+The training walk (forward_rows, inverse_rows) is the same walk with
+grad enabled, on the branch of RevResNet.forward (ops/pad_conv.
+residual_branch_native: every conv in the shards' dtype). It is one
+autograd graph over the row's devices: a halo is a slice copied with
+`.to()`, whose backward carries the cotangent back to the shard that owns
+the row, and each conv's weights are the master's, cast and copied to the
+shard's device inside the graph, so that every shard's part of a weight's
+gradient lands in the master's .grad. With cfg.remat each block is
+recomputed in the backward over the whole list of shards.
+
 A copy between two cards is ordered by PyTorch against both devices'
 current streams; between two replicas on one card it is no copy at all.
 """
@@ -100,6 +110,24 @@ def residual_branch_rows(xs, weights, stride: int = 1):
     return conv(h, 2, 1, False)
 
 
+def residual_branch_native_rows(xs, weights, stride: int = 1):
+    """residual_branch_native of the image that the row shards xs make up,
+    as row shards, differentiable: every conv in xs' dtype, weights[k] =
+    ((w1, b1), (w2, b2), (w3, b3)) for shard k, each cast to that dtype
+    and copied to the shard's device in the graph."""
+    dt = xs[0].dtype
+
+    def conv(hs, i, st, relu):
+        cast = [(ws[i][0].to(dt), ws[i][1].to(dt)) for ws in weights]
+        return reflect_conv_rows(
+            hs, [(w.to(h.device), b.to(h.device))
+                 for (w, b), h in zip(cast, hs)], st, relu)
+
+    h = conv(xs, 0, stride, True)
+    h = conv(h, 1, 1, True)
+    return conv(h, 2, 1, False)
+
+
 def _check_rows(cfg: RevResNetConfig, shards: int, rows: int,
                what: str = "image") -> None:
     """Raise ValueError unless `rows`, the rows of a shard of an image
@@ -133,3 +161,24 @@ def decode_rows(nets: Sequence, shards):
         _check_rows(cfg, len(shards), s.shape[1] * cfg.latent_scale,
                    "latent's image")
     return nets[0]._decode(list(shards), residual_branch_rows, nets)
+
+
+def forward_rows(net, shards):
+    """RevResNet.forward (the differentiable encode) of the image that
+    `shards` (NHWC row shards in row order) make up, as latent row shards,
+    in the shards' dtype; net's weights serve every shard (copied to its
+    device inside the graph, so their .grad collects every shard's
+    part)."""
+    for s in shards:
+        _check_rows(net.cfg, len(shards), s.shape[1])
+    return net._encode(list(shards), residual_branch_native_rows)
+
+
+def inverse_rows(net, shards):
+    """RevResNet.inverse (the differentiable decode) of a latent given as
+    row shards, as image row shards; the inverse of forward_rows."""
+    cfg = net.cfg
+    for s in shards:
+        _check_rows(cfg, len(shards), s.shape[1] * cfg.latent_scale,
+                   "latent's image")
+    return net._decode(list(shards), residual_branch_native_rows)

@@ -33,6 +33,13 @@ programs) place the work; here it is placed by hand, in PyTorch's idiom:
     the JAX package shard_maps them over "data" alone, since XLA cannot
     partition a Pallas call, and would only repeat their work along
     "spatial".
+  * row-sharded training (parallel_train_step(..., rows=...), JAX's
+    spatial=True steps) runs one process per data row, driving that
+    row's devices: the rank's images split by rows over them, the step's
+    whole forward and backward one autograd graph across them
+    (train/losses.loss_and_grads_rows; a halo or a reduction is a copy
+    inside the graph, whose backward autograd carries back), then the
+    flat all-reduce over the data rows' ranks as above.
 
 The programs are the single-device ones of models/pipeline.py, looked up
 when a parallel function is made, not copies of them. A mesh is the tuple
@@ -205,7 +212,9 @@ def map_shards(devices: Sequence[torch.device], local_fn,
         raise ValueError(
             "a 2-D ('data', 'spatial') mesh shards rows, which only "
             "parallel_stylize and parallel_stylize_factored do, with "
-            "spatial=True; the other parallel programs take a 1-D mesh")
+            "spatial=True, and parallel_train_step, with rows= (a data "
+            "row of the mesh); the other parallel programs take a 1-D "
+            "mesh")
     devices = tuple(torch.device(d) for d in devices)
     if not devices:
         raise ValueError("map_shards: no devices")
@@ -341,33 +350,63 @@ def parallel_stylize_masked_fused(devices, cfg: RevResNetConfig,
 # ---------------------------------------------------------------------------
 
 def parallel_train_step(state, vgg, a, b, tc, flow=None, noise=None,
-                        temporal_phase: bool = False, group=None):
+                        temporal_phase: bool = False, group=None,
+                        rows=None):
     """One optimizer step of a rank in place; returns the aux losses of
-    the global batch.
+    the global batch. The counterpart of make_parallel_train_step and
+    make_parallel_flat_step; rows= is their spatial=True.
 
     a, b (and flow, noise in the temporal phase) are this rank's rows of
     the global batch, every rank holding as many. In order: the local
-    loss_and_grads (its matting cotangent scaled by the world size, see
-    train/losses.py); one all_reduce (sum) of a flat buffer of every
-    gradient and the aux vector; the division by the world size, after
-    which the gradient is the global batch's and the aux losses its
+    loss_and_grads (its matting cotangent scaled by the number of ranks,
+    see train/losses.py); one all_reduce (sum) of a flat buffer of every
+    gradient and the aux vector; the division by the number of ranks,
+    after which the gradient is the global batch's and the aux losses its
     means; then the trainer's global-norm clip, Adam step and schedule
     (train/trainer.apply_gradients). Every rank applies the same reduced
-    buffer, so the parameters stay bit-identical across ranks."""
+    buffer, so the parameters stay bit-identical across ranks. Outside a
+    process group the rank is the whole batch (nothing to reduce).
+
+    rows: this rank's data row of a ("data", "spatial") mesh (make_mesh's
+    grid, one rank a data row), a tuple of S devices whose first holds
+    state.net and vgg. The rank's images are split by rows over them
+    (shard_batch(spatial=True) on the one-row mesh (rows,)), or given as
+    lists of S row shards, and the local step is loss_and_grads_rows: one
+    autograd graph
+    over the row's devices, the halos and reductions copies within it.
+    The image height must be a multiple of 8 * S (VGG's pools) and of
+    S * the net's down_scale; ValueError otherwise."""
     import torch.distributed as dist
 
-    from vstnet_tpu_torch.train.losses import AUX_KEYS, loss_and_grads
+    from vstnet_tpu_torch.train.losses import (
+        AUX_KEYS,
+        loss_and_grads,
+        loss_and_grads_rows,
+    )
     from vstnet_tpu_torch.train.trainer import apply_gradients
 
-    world = dist.get_world_size(group)
-    _, aux = loss_and_grads(state.net, vgg, a, b, tc.weights, flow, noise,
-                            temporal_phase, tc.precision, shards=world)
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
+    if rows is None:
+        _, aux = loss_and_grads(state.net, vgg, a, b, tc.weights, flow,
+                                noise, temporal_phase, tc.precision,
+                                shards=world)
+    else:
+        grid = (tuple(torch.device(d) for d in rows),)
+        a, b, flow, noise = (
+            None if x is None else shard_batch(
+                grid, [x] if isinstance(x, (list, tuple)) else x,
+                spatial=True)[0]
+            for x in (a, b, flow, noise))
+        _, aux = loss_and_grads_rows(state.net, vgg, a, b, tc.weights,
+                                     flow, noise, temporal_phase,
+                                     tc.precision, shards=world)
     grads = [p.grad for p in state.net.parameters()]
     dt = grads[0].dtype
     flat = torch.cat([g.reshape(-1).to(dt) for g in grads]
                      + [torch.stack([aux[k] for k in AUX_KEYS]).to(dt)])
-    dist.all_reduce(flat, group=group)
-    flat.div_(world)
+    if world > 1:
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
     off = 0
     for g in grads:
         g.copy_(flat[off:off + g.numel()].view_as(g))
