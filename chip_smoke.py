@@ -19,9 +19,11 @@ order; any failure raises and the process exits non-zero:
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the paths' shapes: K1 coupling and K2 transition (batch 2,
               forward and inverse, float32 on the CUDA-core kernels with a
-              float32 round trip, bf16 on the tensor-core kernels, checked
-              also at sizes with tails and with H or W below the tile, and
-              inverse(forward(x)) against x), K3 half-res transition at the
+              float32 round trip, bit for bit, also at planes that no 16x16
+              tile divides at B=1 and 3 (F32_TAILS), bf16 on the
+              tensor-core kernels, checked also at sizes with tails and
+              with H or W below the tile, and inverse(forward(x)) against
+              x), K3 half-res transition at the
               640x360 shapes (the same, plus K2 == K3 on unshuffled streams
               bit for bit, also at the ragged sizes), K4 attention at
               the SegFormer shapes, one ragged shape and one with M = 4096,
@@ -52,9 +54,10 @@ order; any failure raises and the process exits non-zero:
   6. timings  each kernel against its plain version (and, for K4, against
               scaled_dot_product_attention) at batch 8 in bf16, beside its
               bound, with the route each K1 shape took; the CUDA-core K1,
-              K2 and K3 kernels in float32; K2 against K3 with the caller's
-              (un)shuffle at the 512x512 and the 640x360 shapes; K5 by
-              CUDA-graph replay (its device time: called eagerly, the
+              K2 and K3 kernels in float32, beside PERF.md's PR 4 time
+              from before the redesign (F32_EARLIER, not measured here); K2 against K3 with the
+              caller's (un)shuffle at the 512x512 and the 640x360 shapes;
+              K5 by CUDA-graph replay (its device time: called eagerly, the
               wrapper's host time is the larger at the small shapes), also
               at the 1024x1024 shapes, beside cuDNN's depthwise conv + GELU
               as a yardstick; SegFormer-B4 alone (CUDA events, and one call
@@ -278,6 +281,18 @@ K2_TAILS = [(64, 100, 136), (16, 100, 136), (64, 6, 90), (16, 4, 4),
 # the image edge, H or W below the 16x16 tile, the 640x360 planes' 45x80
 K1_TAILS = [(256, 20, 36), (256, 7, 45), (256, 45, 80), (64, 40, 36),
             (64, 9, 50), (16, 70, 33), (16, 5, 100)]
+# (kernel, C, full-res H, W, B, cuDNN) of the float32 CUDA-core kernels'
+# extra checks: planes that no 16x16 tile divides (half-res for K2/K3),
+# below one tile, the smallest a reflect pad allows, at B=1 and B=3, at
+# shapes where the plain version's convs sum in the kernels' order (K1 with
+# cuDNN on at C=16 and 64, off at C=256; the transitions' plain versions
+# run without it): bit for bit. scripts/torch_f32_parent.py holds the
+# kernels against their earlier version where no plain conv does
+F32_TAILS = [("K1", 16, 70, 33, 3, True), ("K1", 16, 2, 2, 1, True),
+             ("K1", 64, 9, 50, 3, True), ("K1", 64, 3, 17, 1, True),
+             ("K1", 256, 100, 140, 1, False), ("K1", 256, 140, 100, 3, False),
+             ("K2", 16, 250, 300, 1, False), ("K2", 16, 130, 270, 3, False),
+             ("K2", 64, 260, 200, 1, False), ("K2", 64, 300, 180, 3, False)]
 # (name, G, N, M, launches per segment call) of the attention kernel:
 # stage 1 of 512x512 frames (G = batch), stages 1 and 2 of 1024x1024 frames
 K4_SHAPES = [("512 s1", 1, 16384, 256, 3), ("1024 s1", 1, 65536, 1024, 3),
@@ -582,6 +597,30 @@ def phase_kernels(cf, att, dw, device, gen):
                 _check(f"K1 {name} f32 round trip", back, x1, ROUND_TRIP_TOL)
             elif route == "mma":
                 _k1_bf16_round_trip(cf, f"K1 {name} C={c}", x1, x2, wp)
+    f32 = torch.float32
+    for kind, c, h, w, b, cudnn in F32_TAILS:
+        x1 = torch.randn((b, c, h, w), generator=gen).to(device)
+        x2 = torch.randn((b, c, h, w), generator=gen).to(device)
+        if kind == "K2":
+            wp = cf.pack_transition_weights(
+                _rand_branch(gen, c, c, 4 * c, device), f32)
+            _k2_k3_checks(cf, f"f32 tails C={c} {h}x{w} B={b} fma", x1, x2,
+                          wp, worst)
+            continue
+        wp = cf.pack_coupling_weights(
+            _rand_branch(gen, c, c // 4, c, device), f32)
+        y = cf.fused_coupling(x1, x2, wp)
+        back = cf.fused_coupling(y, x2, wp, inverse=True)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            refs = (cf.coupling_block_plain(x1, x2, wp),
+                    cf.coupling_block_plain(y, x2, wp, inverse=True))
+        torch.cuda.synchronize()
+        for what, got, ref in (("fwd", y, refs[0]), ("inv", back, refs[1])):
+            _check(f"K1 f32 tails C={c} {h}x{w} B={b} fma {what} (cuDNN "
+                   f"{'on' if cudnn else 'off'})", got, ref, F32_TOL,
+                   worst, "coupling", exact=True)
+        _check(f"K1 f32 tails C={c} {h}x{w} B={b} round trip", back, x1,
+               ROUND_TRIP_TOL)
     for c, h, w in K1_TAILS:
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
@@ -1045,11 +1084,27 @@ def phase_masked(ops, model, style, device, gen, total):
 # Phase 6: timings
 # ---------------------------------------------------------------------------
 
-def _line(kernel, name, shape, tk, tp, bound, lib=None, dtype="bf16"):
+# the float32 CUDA-core kernels' ms a launch at batch 8 before their
+# redesign, as PERF.md records them from PR 4's chip run (K1 and K2 at
+# 512x512, K3 at 640x360, H100 80GB HBM3 at 700 W): constants, printed
+# beside phase 6's float32 rows under that label and measured by no run of
+# this script; scripts/torch_f32_parent.py times the earlier kernels in the
+# same call as the current ones
+F32_EARLIER = {("coupling", 16): 1.052, ("coupling", 64): 1.851,
+               ("coupling", 256): 7.828, ("transition", 16): 1.818,
+               ("transition", 64): 4.166, ("transition_half", 16): 1.338,
+               ("transition_half", 64): 3.642}
+
+
+def _line(kernel, name, shape, tk, tp, bound, lib=None, dtype="bf16",
+          earlier=None):
     bms, by = bound
     lib_s = "" if lib is None else f", library {lib:.3f} ms"
+    old_s = ("" if earlier is None else
+             f", earlier {earlier:.3f} ms (PERF.md, PR 4; not this run)")
     print(f"time {kernel} {name} {shape} {dtype}: kernel {tk:.3f} ms, plain "
-          f"{tp:.3f} ms{lib_s}, bound {bms:.4f} ms ({by})")
+          f"{tp:.3f} ms{lib_s}, bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / tk:.1f} % of it{old_s}")
 
 
 def phase_timings(cf, att, dw, device, gen, batch=8):
@@ -1099,7 +1154,8 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         bound = bound_coupling(batch, c, h, w, esize=4, peak=PEAK_F32)
         route = cf.coupling_route(torch.float32, c, c // 4)
         _line("coupling", name, f"C={c} {h}x{w} B={batch} route {route}",
-              tk, tp, bound, dtype="float32")
+              tk, tp, bound, dtype="float32",
+              earlier=F32_EARLIER[("coupling", c)])
         tally("coupling", count, tk, tp, bound)
     # K2 at the 512x512 shapes and K3 at the 640x360 shapes: the tensor-core
     # kernel in bf16 and the CUDA-core kernel in float32 (TF32 off on both
@@ -1131,7 +1187,8 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
                 key = ("transition_half" if half else "transition") + (
                     "_mma" if route == "mma" else "")
                 _line(key, name, f"{shape} route {route}", tk, tp, bound,
-                      dtype=_dt(dt))
+                      dtype=_dt(dt), earlier=F32_EARLIER.get((key, c))
+                      if dt == f32 else None)
                 tally(key, count, tk, tp, bound)
 
             wp = cf.pack_transition_weights(branch, bf)

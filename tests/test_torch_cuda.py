@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import F32_TAILS
 from vstnet_tpu_torch.config import RevResNetConfig
 from vstnet_tpu_torch.models import revresnet_fast as rf
 from vstnet_tpu_torch.models.revresnet import RevResNet
@@ -124,6 +125,63 @@ def test_coupling_mma_forward_then_inverse(dev, gen, c, h, w):
     f_fwd = cf.fused_coupling(torch.zeros_like(x1), x2, wp)
     f_inv = cf.fused_coupling(torch.zeros_like(x1), x2, wp, inverse=True)
     assert torch.equal(f_fwd, -f_inv)
+
+
+# (kernel, C, H, W, B, cuDNN) of the CUDA-core kernels' exactness checks:
+# chip_smoke.py's float32 F32_TAILS (the shapes and why cuDNN is on or off
+# are explained there) and bf16 at C=32, a width the tensor-core kernels
+# are not built for, through the same file
+_FMA_CASES = [*F32_TAILS, ("K1", 32, 20, 24, 1, True)]
+
+
+@pytest.mark.parametrize("kind,c,h,w,b,cudnn", _FMA_CASES,
+                         ids=[f"{k}-C{c}-{h}x{w}-B{b}"
+                              for k, c, h, w, b, _ in _FMA_CASES])
+def test_cuda_core_kernels_equal_plain(dev, gen, kind, c, h, w, b, cudnn):
+    """float32 K1, K2 and K3 (csrc/coupling.cu, csrc/transition.cu) equal
+    their plain versions bit for bit (each output sums ci, then ky, then
+    kx from 0, as the plain convs do at these shapes), forward and
+    inverse, and the round trip restores the input within 1e-5 of the
+    output's scale; K2(x1, x2) == K3(u(x1), u(x2)). bf16 at C=32 within
+    2 ulps of the output's scale."""
+    dt = torch.float32 if c != 32 else torch.bfloat16
+    exact = dt == torch.float32
+    x1 = torch.randn((b, c, h, w), device=dev).to(dt)
+    x2 = torch.randn((b, c, h, w), device=dev).to(dt)
+
+    def same(got, ref):
+        assert torch.equal(got, ref) if exact else (
+            _err(got, ref) <= _tol(ref, dt))
+
+    if kind == "K1":
+        wp = cf.pack_coupling_weights(_weights(gen, c, c // 4, c, dev), dt)
+        assert cf.coupling_route(dt, c, c // 4) == "fma"
+        y = cf.fused_coupling(x1, x2, wp)
+        back = cf.fused_coupling(y, x2, wp, inverse=True)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            same(y, cf.coupling_block_plain(x1, x2, wp))
+            same(back, cf.coupling_block_plain(y, x2, wp, inverse=True))
+        assert _err(back, x1) <= (1e-5 * max(float(y.abs().max()), 1.0)
+                                  if exact else _tol(y, dt))
+        return
+    wp = cf.pack_transition_weights(_weights(gen, c, c, 4 * c, dev), dt)
+    assert cf.transition_route(dt, c, c) == "fma"
+    g0, g1 = cf.fused_transition(x1, x2, wp)
+    r0, r1 = cf.transition_block_plain(x1, x2, wp)
+    assert torch.equal(g0, r0)
+    same(g1, r1)
+    i0, i1 = cf.fused_transition(g1, g0, wp, inverse=True)
+    same(i0, cf.transition_block_plain(g1, g0, wp, inverse=True)[0])
+    assert torch.equal(i1, x2)
+    assert _err(i0, x1) <= 1e-5 * max(float(g1.abs().max()), 1.0)
+    a_u = pixel_unshuffle(x1).contiguous()
+    b_u = pixel_unshuffle(x2).contiguous()
+    h0, h1 = cf.fused_transition_half(a_u, b_u, wp)
+    same(h1, cf.transition_half_plain(a_u, b_u, wp)[1])
+    assert h0 is b_u and torch.equal(h1, g1)
+    m0, _ = cf.fused_transition_half(h1, h0, wp, inverse=True)
+    same(m0, cf.transition_half_plain(h1, h0, wp, inverse=True)[0])
+    assert torch.equal(pixel_shuffle(m0), i0)
 
 
 def _transition_counts():
