@@ -16,6 +16,21 @@ order; any failure raises and the process exits non-zero:
   2. build    build the CUDA kernels from csrc/ (nvcc, one process per
               source, first use); clear TF32 for cuDNN and matmul so the
               float32 plain versions are true float32.
+     export   make phase 4's model and phase 5's segmenter from their
+              seeds; export the full-depth stylize program and
+              SegFormer-B4's segment-render at 512x512 (phase 11's
+              artifacts of those names and phase 13's programs) to .pt2
+              files, and start phase 13's two AOTInductor compiles in two
+              child processes at once, each with a cold Inductor cache
+              (Packages). They run beside phases 3-5 and phase 15's
+              float64 references ("spatial train f64") only, which print
+              gates and launch counts (the references nothing); the run
+              waits for both ("package join") before phase 7, so that no
+              phase that
+              prints a host clock, an enqueue, frames/s, requests/s,
+              steps/s or the runner's execute ms (phases 7-15) and no
+              timing phase runs beside a compile. A child that fails or
+              outlives PACKAGE_TIMEOUT fails the run.
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the paths' shapes: K1 coupling and K2 transition (batch 2,
               forward and inverse, float32 on the CUDA-core kernels with a
@@ -135,7 +150,9 @@ order; any failure raises and the process exits non-zero:
               call's launches, the trace's kernels by time and the memory
               report. torch.export: the five artifacts at
               512x512 (stylize, encoder, decoder on the PHOTO_CONFIG
-              weights; segmenter, segment-render on SegFormer-B4), loaded
+              weights; segmenter, segment-render on SegFormer-B4; stylize
+              and segment-render are the programs exported before phase 3,
+              with the export and save seconds measured then), loaded
               by load_exported and run on the card against the eager
               functions: <= 1e-4, masks equal on >= 99 % of the decided
               pixels; export and load seconds, each artifact's MB and one
@@ -164,9 +181,11 @@ order; any failure raises and the process exits non-zero:
               the engine and the runner built with g++ against torch's
               CUDA libraries (ldd: libtorch_cuda, no libpython), the
               full-depth PHOTO_CONFIG stylize and SegFormer-B4's
-              segment-render exported and packaged by AOTInductor at
-              512x512 float32 on the card with a cold Inductor cache
-              (compile seconds, MB); NativeEngine within 1e-4 of the
+              segment-render packaged by AOTInductor at 512x512 float32
+              for the card with a cold Inductor cache beside phases 3-5
+              (each package's compile seconds, measured in its child,
+              with the phases and the other compile beside it, and MB);
+              NativeEngine within 1e-4 of the
               eager float32 stylize under true_f32; the runner on four
               512x512 contents and one 1280x720 (both resizes), each PNG
               within one uint8 level of the eager output, its own process
@@ -191,9 +210,11 @@ order; any failure raises and the process exits non-zero:
               parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and
               4, over S cards or S replicas on cuda:0 (said so),
               full-depth PHOTO_CONFIG with remat in float32 with TF32 off,
-              one 1024x1024 content and style at B=1, one step of the
-              image and of the temporal phase, each against train_step on
-              one device and the unsharded float64 gradient: cosine >
+              one 1024x1024 content and style at B=1 from the phase's own
+              generator, one step of the image and of the temporal phase,
+              each against train_step on one device and the unsharded
+              float64 gradient (computed once a phase, before phase 7,
+              beside the package compiles: "spatial train f64"): cosine >
               0.99999 and rel L2 < 1e-2 against the unsharded step, the
               row form no further from float64 than 2x the unsharded
               float32 step (+1e-4) over the tensors, each aux term
@@ -205,7 +226,9 @@ order; any failure raises and the process exits non-zero:
               bf16 against the unsharded bf16 call (cosine > 0.99); no
               kernel of the port launched.
 
-The last two lines of output are the kernels' JSON record and
+Before the kernels' line, `phase seconds: build ..., spatial train ...,
+timings ..., programs ..., total T of 1200` gives each phase's wall
+seconds. The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
 """
 
@@ -768,14 +791,14 @@ def _add(total, counts):
         total[k] += v
 
 
-def phase_global(ops, device, gen, total):
+def phase_global(ops, model, device, gen, total):
+    """model: StyleModel.random_init(seed=0), made in main before phase 3."""
     from vstnet_tpu_torch import ARTISTIC_CONFIG, PHOTO_CONFIG
     from vstnet_tpu_torch.models import cwct
     from vstnet_tpu_torch.models import revresnet_fast as rf
     from vstnet_tpu_torch.models.pipeline import StyleModel, make_fused_video_fn
 
     cfg = PHOTO_CONFIG
-    model = StyleModel.random_init(seed=0, device=device)
     fast = model.fast_params
     style = _frames(gen, 1, 512, device)
     c_lat = cfg.latent_channels
@@ -883,7 +906,7 @@ def phase_global(ops, device, gen, total):
           f"f32 plain (>= 40)")
     if tuple(got.shape) != (2, 512, 512, 3) or not p >= PSNR_GATE:
         raise AssertionError(f"artistic: {tuple(got.shape)} {p}")
-    return model, style
+    return style
 
 
 # ---------------------------------------------------------------------------
@@ -924,7 +947,8 @@ def _plain_masked(model, style, smask, frames, masks):
     return model.net.decode(z_cs).clamp(0, 1)
 
 
-def phase_masked(ops, model, style, device, gen, total):
+def phase_masked(ops, model, seg, style, device, gen, total):
+    """seg: Segmenter.load(None, seed=0), made in main before phase 3."""
     from vstnet_tpu_torch import PHOTO_CONFIG
     from vstnet_tpu_torch.models import cwct
     from vstnet_tpu_torch.models import revresnet_fast as rf
@@ -937,7 +961,6 @@ def phase_masked(ops, model, style, device, gen, total):
 
     cfg = PHOTO_CONFIG
     fast = model.fast_params
-    seg = sf.Segmenter.load(None, seed=0, device=device)
     if seg.net.depths != sf.DEPTHS:
         raise AssertionError(f"segmenter depths {seg.net.depths}")
     region, plan, smask = prepare_masked_style(fast, seg, style, cfg)
@@ -1077,7 +1100,7 @@ def phase_masked(ops, model, style, device, gen, total):
           f"(>= 40)")
     if not p >= PSNR_GATE:
         raise AssertionError(f"masked 640x360 PSNR {p}")
-    return seg, region, plan
+    return region, plan
 
 
 # ---------------------------------------------------------------------------
@@ -2683,11 +2706,13 @@ def _train_correctness(device, gen, smi):
     w = LossWeights()
     g32, aux32 = loss_and_grads(net, vgg, a, s, w, flow, noise, True)
     g32 = _flat_grads(g32)
+    t0 = time.perf_counter()
     net64, vgg64 = copy.deepcopy(net).double(), copy.deepcopy(vgg).double()
     g64, aux64 = loss_and_grads(net64, vgg64, a.double(), s.double(), w,
                                 flow, noise.double(), True,
                                 precision="f64")
     g64 = _flat_grads(g64)
+    print(f"train f64 reference: {time.perf_counter() - t0:.1f} s")
     cos = float(g32 @ g64 / (g32.norm() * g64.norm()))
     rel = float((g32 - g64).norm() / g64.norm())
     errs = {k: abs(float(aux32[k]) / float(aux64[k]) - 1)
@@ -2825,9 +2850,14 @@ def _train_timings(device, gen, smi):
 
 def phase_train(device, gen, smi):
     """Phase 10: the training path (no kernel of the port lies on it)."""
-    _train_cli(device, gen, smi)
-    _train_correctness(device, gen, smi)
-    _train_timings(device, gen, smi)
+    walls = {}
+    for part, fn in (("cli", _train_cli), ("correctness", _train_correctness),
+                     ("timings", _train_timings)):
+        t0 = time.perf_counter()
+        fn(device, gen, smi)
+        walls[part] = time.perf_counter() - t0
+    print("phase train: " + ", ".join(f"{k} {v:.1f} s"
+                                      for k, v in walls.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -2944,8 +2974,15 @@ def _tools_smoke(tmp, smi):
     Returns each run's wall seconds."""
     import os
 
+    from vstnet_tpu_torch.ops import _build
     from vstnet_tpu_torch.runtime import profiling
 
+    def builds():
+        lib = _build.library_path()
+        return lib, lib.stat().st_mtime_ns, sorted(
+            p.name for p in lib.parent.iterdir())
+
+    before = builds()
     walls = {}
     for argv in (["--test", "all", "--size", "512", "--n_shapes", "10",
                   "--batch", "8"],
@@ -2955,6 +2992,13 @@ def _tools_smoke(tmp, smi):
     out, walls["photo --profile"] = _smoke(
         ["--test", "photo", "--size", "1024", "--iters", "3", "--profile",
          logdir])
+    # each child loads the library phase 2 built (ops/_build.py names it
+    # by a hash of the sources) and builds nothing
+    if builds() != before:
+        raise AssertionError(f"the smoke children rebuilt the kernels: "
+                             f"{before} -> {builds()}")
+    print(f"smoke children: each loaded {before[0].name} as phase 2 built "
+          f"it (its file and the build directory unchanged)")
     line = [x for x in out.splitlines()
             if "kernel launches per fast call:" in x][0]
     per_call = json.loads(line.split(":", 1)[1])
@@ -2984,8 +3028,13 @@ def _eager_render(seg_net, x, device, blend=0.5, min_ratio=0.02):
     return (blend * pal[m.long()] + (1.0 - blend) * x).clamp(0.0, 1.0)
 
 
-def _tools_export(model, seg_net, device, gen, smi):
+def _tools_export(model, seg_net, device, gen, smi, exported):
+    """exported: {name: (program, export s, .pt2 path, save s)} of the
+    artifacts that Packages exported before phase 3 (stylize and
+    segment-render, the same calls at the same size); the others are
+    exported here."""
     import io
+    import pathlib
 
     from vstnet_tpu_torch.models import segformer as sf
     from vstnet_tpu_torch.models.pipeline import stylize
@@ -3013,14 +3062,18 @@ def _tools_export(model, seg_net, device, gen, smi):
          lambda: _eager_render(seg_net, c, device)),
     ]
     for name, export, args, eager in cases:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ep, _ = export()
-        t_export = time.perf_counter() - t0
-        buf = io.BytesIO()
-        torch.export.save(ep, buf)
-        blob = buf.getvalue()
-        t_save = time.perf_counter() - t0 - t_export
+        if name in exported:
+            ep, t_export, pt2, t_save = exported[name]
+            blob = pathlib.Path(pt2).read_bytes()
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ep, _ = export()
+            t_export = time.perf_counter() - t0
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            blob = buf.getvalue()
+            t_save = time.perf_counter() - t0 - t_export
         t0 = time.perf_counter()
         fn = ex.load_exported(blob, device=device)
         t_load = time.perf_counter() - t0
@@ -3064,9 +3117,9 @@ def _tools_export(model, seg_net, device, gen, smi):
             raise AssertionError(f"export {name}: {detail}")
 
 
-def phase_tools(ops, model, seg, device, gen, total, smi):
+def phase_tools(ops, model, seg, device, gen, total, smi, exported):
     """Phase 11: GGUF weights, the smoke CLI and the torch.export
-    artifacts, one after another."""
+    artifacts, one after another; exported: Packages.exported."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -3075,7 +3128,7 @@ def phase_tools(ops, model, seg, device, gen, total, smi):
         t_gguf = time.perf_counter() - t0
         walls = _tools_smoke(tmp, smi)
     t_smoke = time.perf_counter() - t0 - t_gguf
-    _tools_export(model, seg.net, device, gen, smi)
+    _tools_export(model, seg.net, device, gen, smi, exported)
     wall = time.perf_counter() - t0
     print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, smoke runs "
           f"{t_smoke:.1f}: " + ", ".join(f"{k} {v:.1f}"
@@ -3613,36 +3666,171 @@ def _ldd_check(paths):
                                  f"{deps}")
 
 
-def _package(native, export, path, what, device):
-    """export() then package_program -> (package, export s, compile s,
-    package MB)."""
-    import os
+# One package's compile in a child process (argv: .pt2, package path, what,
+# device). Prints one JSON line: the wall clock at its start and end, the
+# seconds to load the program and to compile it, the CPU seconds of the
+# process and of its finished subprocesses, and the package's MB
+_PACKAGE_CHILD = r"""
+import json, os, resource, sys, time
+import torch
+from vstnet_tpu_torch.runtime import native
+pt2, path, what, device = sys.argv[1:5]
+start = time.time()
+ep = torch.export.load(pt2)
+t_load = time.time() - start
+t0 = time.perf_counter()
+native.package_program(ep, path, device=device, what=what)
+t_compile = time.perf_counter() - t0
+cpu = {k: sum(resource.getrusage(w)[:2]) for k, w in (
+    ("self", resource.RUSAGE_SELF), ("subprocesses", resource.RUSAGE_CHILDREN))}
+print(json.dumps({"start": start, "end": time.time(), "load": t_load,
+                  "compile": t_compile, "cpu": cpu,
+                  "mb": os.path.getsize(path) / 2**20}))
+"""
+# seconds from the children's start: a child that has not finished by then
+# fails the run (side by side the two compiles took ~160-200 s on the H100
+# machine), early enough for the failure to be the run's own
+PACKAGE_TIMEOUT = 600
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ep = export()
-    t_export = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pkg = native.package_program(ep, path, device=device, what=what)
-    t_compile = time.perf_counter() - t0
-    return pkg, t_export, t_compile, os.path.getsize(pkg) / 2**20
+
+class Phases:
+    """Each phase's wall-clock span, for the phase-seconds line and for
+    naming the phases a background compile ran beside."""
+
+    def __init__(self):
+        self.t0 = time.time()
+        self.spans = []
+
+    def run(self, name, fn, *args):
+        start = time.time()
+        out = fn(*args)
+        self.spans.append((name, start, time.time()))
+        print(f"phase {name} done at {time.time() - self.t0:.1f} s")
+        return out
+
+    def beside(self, start, end):
+        """The phases that ran in [start, end] (the wait of a join left
+        out)."""
+        return [n for n, a, b in self.spans
+                if a < end and b > start and not n.endswith("join")]
+
+    def line(self):
+        return ("phase seconds: " + ", ".join(
+            f"{n} {b - a:.1f}" for n, a, b in self.spans)
+            + f", total {time.time() - self.t0:.1f} of 1200")
 
 
-def _native_stylize(native, binary, model, device, gen, tmp, smi):
+class Packages:
+    """Phase 13's two AOTInductor packages at NATIVE_HW: the full-depth
+    stylize program and SegFormer-B4's segment-render, exported here (the
+    same programs as phase 11's stylize and segment-render artifacts, which
+    take these exports) and saved as .pt2 files, then compiled by two
+    child processes at once, each with a fresh TORCHINDUCTOR_CACHE_DIR (a
+    cold cache), while the caller runs phases whose printed numbers are
+    gates, launch counts or device times. join() waits for both; a child
+    that fails or outlives PACKAGE_TIMEOUT fails the run with its output,
+    and nothing is compiled again in this process."""
+
+    def __init__(self, model, seg, device, root):
+        import os
+
+        from vstnet_tpu_torch.runtime import export as ex
+
+        hw = NATIVE_HW
+        self.root, self.exported, self.procs, self.done = root, {}, {}, {}
+        for what, export in (
+                ("stylize", lambda: ex.export_stylize(
+                    model.net, model.cfg, hw, hw, device=device)[0]),
+                ("segment-render", lambda: ex.export_segment_render(
+                    seg.net, hw, hw, device=device)[0])):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ep = export()
+            t_export = time.perf_counter() - t0
+            pt2 = os.path.join(root, f"{what}_{hw}x{hw}.pt2")
+            t0 = time.perf_counter()
+            torch.export.save(ep, pt2)
+            self.exported[what] = (ep, t_export, pt2,
+                                   time.perf_counter() - t0)
+        self.started = time.perf_counter()
+        try:
+            for what, (_, _, pt2, _) in self.exported.items():
+                env = dict(os.environ,
+                           TORCHINDUCTOR_CACHE_DIR=os.path.join(
+                               root, f"inductor_{what}"))
+                log = open(os.path.join(root, f"{what}.log"), "w+")
+                self.procs[what] = (subprocess.Popen(
+                    [sys.executable, "-c", _PACKAGE_CHILD, pt2,
+                     self.package(what), what, str(device)],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=env, stdout=log, stderr=subprocess.STDOUT), log)
+        except BaseException:
+            self.close()
+            raise
+        print("packages: " + ", ".join(
+            f"{w} exported in {t:.1f} s, saved in {s:.1f} s"
+            for w, (_, t, _, s) in self.exported.items())
+            + "; both compiling in child processes")
+
+    def package(self, what):
+        return f"{self.root}/{what}_{NATIVE_HW}x{NATIVE_HW}.aoti.pt2"
+
+    def join(self):
+        """Wait for both children; their JSON records go to self.done."""
+        deadline = self.started + PACKAGE_TIMEOUT
+        for what, (proc, log) in self.procs.items():
+            late = ""
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                late = f" (killed after {PACKAGE_TIMEOUT} s)"
+            log.seek(0)
+            out = log.read()
+            if proc.returncode != 0:
+                self.close()
+                raise AssertionError(f"package {what}: the compile child "
+                                     f"exited {proc.returncode}{late}:\n"
+                                     f"{out[-6000:]}")
+            self.done[what] = json.loads(out.strip().splitlines()[-1])
+        self.close()
+
+    def close(self):
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _package_line(what, packages, phases, smi):
+    """The compile record of one package, with what ran beside it."""
+    rec = packages.done[what]
+    other = [w for w, r in packages.done.items() if w != what
+             and r["start"] < rec["end"] and r["end"] > rec["start"]]
+    t_export = packages.exported[what][1]
+    return (f"export {t_export:.1f} s, package compile {rec['compile']:.1f} "
+            f"s (cold Inductor cache; in a child process, after "
+            f"{rec['load']:.1f} s to load the .pt2, beside phases "
+            f"{', '.join(phases.beside(rec['start'], rec['end'])) or 'none'}"
+            f" and the {', '.join(other) or 'no other'} compile; CPU s "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rec["cpu"].items())
+            + f"), {rec['mb']:.1f} MB [{smi}]")
+
+
+def _native_stylize(native, binary, model, device, gen, tmp, smi, packages,
+                    phases):
     import numpy as np
 
     from vstnet_tpu_torch.models.pipeline import stylize
     from vstnet_tpu_torch.models.segformer import true_f32
-    from vstnet_tpu_torch.runtime import export as ex
 
     hw, net = NATIVE_HW, model.net
-    pkg, t_export, t_compile, mb = _package(
-        native, lambda: ex.export_stylize(net, model.cfg, hw, hw,
-                                          device=device)[0],
-        f"{tmp}/stylize_{hw}x{hw}.aoti.pt2", "stylize", device)
-    print(f"native stylize {hw}x{hw} (PHOTO_CONFIG, float32): export "
-          f"{t_export:.1f} s, package compile {t_compile:.1f} s (cold "
-          f"Inductor cache), {mb:.1f} MB [{smi}]")
+    pkg = packages.package("stylize")
+    print(f"native stylize {hw}x{hw} (PHOTO_CONFIG, float32): "
+          + _package_line("stylize", packages, phases, smi))
 
     def eager(c, s):
         with torch.no_grad(), true_f32():
@@ -3716,21 +3904,16 @@ def _native_stylize(native, binary, model, device, gen, tmp, smi):
     return mean, eager_ms
 
 
-def _native_segment(native, binary, seg_net, device, gen, tmp, smi):
+def _native_segment(native, binary, seg_net, device, gen, tmp, smi,
+                    packages, phases):
     import numpy as np
 
     from vstnet_tpu_torch.models.segformer import true_f32
-    from vstnet_tpu_torch.runtime import export as ex
 
     hw = NATIVE_HW
-    pkg, t_export, t_compile, mb = _package(
-        native, lambda: ex.export_segment_render(seg_net, hw, hw,
-                                                 device=device)[0],
-        f"{tmp}/segment_render_{hw}x{hw}.aoti.pt2", "segment-render",
-        device)
+    pkg = packages.package("segment-render")
     print(f"native segment-render {hw}x{hw} (SegFormer-B4, float32): "
-          f"export {t_export:.1f} s, package compile {t_compile:.1f} s "
-          f"(cold Inductor cache), {mb:.1f} MB [{smi}]")
+          + _package_line("segment-render", packages, phases, smi))
 
     def eager(x):
         with torch.no_grad(), true_f32():
@@ -3763,12 +3946,12 @@ def _native_segment(native, binary, seg_net, device, gen, tmp, smi):
                              f"engine's pixels, {same:.5f} of the PNG's")
 
 
-def phase_native(model, seg, device, gen, smi):
-    """Phase 13: the native tier. Build the engine and the runner, package
-    the full-depth stylize program and SegFormer-B4's segment-render at
-    512x512 on the card (a cold Inductor cache), and hold the engine and
-    the runner, a process without Python, against the eager programs."""
-    import os
+def phase_native(model, seg, device, gen, smi, packages, phases):
+    """Phase 13: the native tier. Build the engine and the runner, take the
+    full-depth stylize program and SegFormer-B4's segment-render packaged
+    at 512x512 for the card with a cold Inductor cache (Packages, joined
+    before phase 7), and hold the engine and the runner, a process without
+    Python, against the eager programs."""
     import tempfile
 
     from vstnet_tpu_torch.runtime import native
@@ -3785,17 +3968,11 @@ def phase_native(model, seg, device, gen, smi):
     print(f"native build: {binary.parent.name} in {t_build:.1f} s (g++ "
           f"against torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{tri}); ldd: libtorch_cuda, no libpython")
-    saved = os.environ.get("TORCHINDUCTOR_CACHE_DIR")
     with tempfile.TemporaryDirectory(prefix="vstnet_native_") as tmp:
-        os.environ["TORCHINDUCTOR_CACHE_DIR"] = f"{tmp}/inductor"
-        try:
-            _native_stylize(native, binary, model, device, gen, tmp, smi)
-            _native_segment(native, binary, seg.net, device, gen, tmp, smi)
-        finally:
-            if saved is None:
-                os.environ.pop("TORCHINDUCTOR_CACHE_DIR", None)
-            else:
-                os.environ["TORCHINDUCTOR_CACHE_DIR"] = saved
+        _native_stylize(native, binary, model, device, gen, tmp, smi,
+                        packages, phases)
+        _native_segment(native, binary, seg.net, device, gen, tmp, smi,
+                        packages, phases)
     print(f"phase native: {time.perf_counter() - t0:.1f} s")
 
 
@@ -3979,17 +4156,21 @@ def phase_spatial(ops, model, device, gen, smi):
 # as the reference. Gates set from the first card run (H100 80GB HBM3,
 # 700 W; the ranges below are of three runs): the gradient's cosine
 # against the unsharded one above SPT_COS (measured 0.9999987-0.9999999)
-# and its relative L2 distance below SPT_REL_L2 (4.7e-4 to 1.7e-3; phase
-# 10's float32-vs-float64 gates).
+# and its relative L2 distance below SPT_REL_L2 (4.7e-4 to 1.7e-3 while
+# the card summed the cWCT's statistics in float32, 4.4e-5 to 6.7e-5 since
+# they are summed in float64 there; phase 10's float32-vs-float64 gates).
 # Each tensor's max |dg| / max |g| against the unsharded step, the CPU
 # test's metric (1e-4 there, at SMALL's depth), is printed, not gated: at
-# full depth it reached 1.75e-2, because float32 itself lies that far
-# from float64 on tensors whose gradient the cycle term's cancellation
-# dominates (the unsharded float32 step: 1.7e-3 to 9.7e-3 of some
-# tensor's max). So the gate on tensors is against float64: over the
-# tensors, the row form's largest max |g - g64| / max |g64| within
-# SPT_F64_FACTOR times the unsharded float32 step's, plus SPT_REL
-# (measured: 0.30-1.34 times it). Each aux loss term within rtol / atol
+# full depth it reached 1.75e-2 (8.3e-4 with the float64 statistics),
+# because float32 itself lies far from float64 on tensors whose gradient
+# the cycle term's cancellation dominates (the unsharded float32 step:
+# 1.7e-3 to 9.7e-3 of some tensor's max with float32 statistics, 1.4e-3
+# to 3.4e-3 with float64 ones, where ReLU and L1 decisions that float32
+# cannot make are what is left). So the gate on tensors is against
+# float64: over the tensors, the row form's largest max |g - g64| / max
+# |g64| within SPT_F64_FACTOR times the unsharded float32 step's, plus
+# SPT_REL (measured: 0.30-1.34 times it; 1.04-1.21 with the float64
+# statistics). Each aux loss term within rtol / atol
 # (loss_rec, zero in exact arithmetic, is roundoff: up to 1.3e-7 apart
 # on 5.1e-4). The parameters after the step: Adam's first step is
 # -lr * g / (|g| + eps), so a near-zero gradient whose sign the summation
@@ -3998,6 +4179,7 @@ def phase_spatial(ops, model, device, gen, smi):
 # 1.04e-7). The bf16 route against the unsharded bf16 call: cosine above
 # SPT_BF16_COS (0.9960-0.9989).
 SPT_HW = 1024
+SPT_SEED = 15
 SPT_COS = 0.99999
 SPT_REL_L2 = 1e-2
 SPT_F64_FACTOR = 2.0
@@ -4096,28 +4278,57 @@ def _spt_compare(label, aux, grads, params, ref, g64, lr):
                              f"{float(pd.max())}")
 
 
-def phase_spatial_train(ops, device, gen, smi):
-    """Phase 15: parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and
-    4, full-depth PHOTO_CONFIG with remat, float32 (TF32 off), one
-    1024x1024 content and style at B=1, image and temporal phase, against
-    train_step on one device: gradients, aux, parameters after the step;
-    ms a step, host enqueue ms, peak memory a device; then the bf16 route
-    against the unsharded bf16 call (cosine)."""
+def spt_references(device):
+    """Phase 15's inputs and its unsharded float64 gradients, computed
+    before phase 7 beside the package compiles (they print nothing): the
+    network (seed 0) and VGG (seed 42), a batch from its own generator
+    (SPT_SEED; independent of the phases that draw before phase 15), and
+    loss_and_grads in float64 for the image and the temporal phase, its
+    gradients kept on the host. -> (net, vgg, batch, {temporal:
+    [gradients]})."""
     import copy
 
     from vstnet_tpu_torch.config import PHOTO_CONFIG
     from vstnet_tpu_torch.models.revresnet import RevResNet
     from vstnet_tpu_torch.models.vgg import init_vgg
+    from vstnet_tpu_torch.train import trainer as tr
+    from vstnet_tpu_torch.train.losses import loss_and_grads
+
+    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
+    net.init_weights(torch.Generator().manual_seed(0))
+    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
+    batch = _train_batch(torch.Generator().manual_seed(SPT_SEED), 1, SPT_HW,
+                         device)
+    tc = tr.TrainConfig()
+    g64 = {}
+    with tr._no_tf32():
+        for temporal in (False, True):
+            net64 = copy.deepcopy(net).double()
+            vgg64 = copy.deepcopy(vgg).double()
+            g, _ = loss_and_grads(net64, vgg64, *(
+                x.double() for x in batch[:2]), tc.weights, batch[2],
+                batch[3].double(), temporal, precision="f64")
+            g64[temporal] = [x.detach().cpu() for x in g.values()]
+            del net64, vgg64, g
+    return net, vgg, batch, g64
+
+
+def phase_spatial_train(ops, device, smi, refs):
+    """Phase 15: parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and
+    4, full-depth PHOTO_CONFIG with remat, float32 (TF32 off), one
+    1024x1024 content and style at B=1, image and temporal phase, against
+    train_step on one device: gradients, aux, parameters after the step;
+    ms a step, host enqueue ms, peak memory a device; then the bf16 route
+    against the unsharded bf16 call (cosine). refs: spt_references()."""
+    import copy
+
     from vstnet_tpu_torch.parallel import parallel_train_step, shard_batch
     from vstnet_tpu_torch.train import trainer as tr
     from vstnet_tpu_torch.train.losses import loss_and_grads, \
         loss_and_grads_rows
 
     t0 = time.perf_counter()
-    net = RevResNet(PHOTO_CONFIG.with_remat(), device=device)
-    net.init_weights(torch.Generator().manual_seed(0))
-    vgg = init_vgg(torch.Generator().manual_seed(42), device=device)
-    batch = _train_batch(gen, 1, SPT_HW, device)
+    net, vgg, batch, refs64 = refs
     tc = tr.TrainConfig()
     grids = {s: _spatial_grid(s) for s in SPATIAL_S}
     for s, (_, distinct) in grids.items():
@@ -4146,13 +4357,7 @@ def phase_spatial_train(ops, device, gen, smi):
                     return aux, state.net
                 return step
 
-            net64 = copy.deepcopy(net).double()
-            vgg64 = copy.deepcopy(vgg).double()
-            g64, _ = loss_and_grads(net64, vgg64, *(
-                x.double() for x in batch[:2]), tc.weights, batch[2],
-                batch[3].double(), temporal, precision="f64")
-            g64 = [g.detach().cpu() for g in g64.values()]
-            del net64, vgg64
+            g64 = refs64[temporal]
             runs = {}
             for s in (1,) + SPATIAL_S:
                 rows = None if s == 1 else grids[s][0][0]
@@ -4212,8 +4417,13 @@ def phase_spatial_train(ops, device, gen, smi):
 
 
 def main():
+    import os
+    import tempfile
+
     smi = _require_card()
     from vstnet_tpu_torch import ops
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+    from vstnet_tpu_torch.models.segformer import Segmenter
     from vstnet_tpu_torch.ops import _build
     from vstnet_tpu_torch.ops import attention as att
     from vstnet_tpu_torch.ops import coupling_fused as cf
@@ -4221,51 +4431,70 @@ def main():
 
     print(f"device: {torch.cuda.get_device_name(0)}")
     print(smi)
+    print(f"host: os.cpu_count() {os.cpu_count()}")
     device = torch.device("cuda:0")
 
-    t0 = time.perf_counter()
-    path, compile_s = _build.build()
-    _build.load()
-    print(f"build: {path.name} (nvcc {compile_s:.1f} s, total "
-          f"{time.perf_counter() - t0:.1f} s)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    phases = Phases()
 
-    gen = torch.Generator().manual_seed(0)
-    worst = phase_kernels(cf, att, dw, device, gen)
-    print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
-    # launches of the main paths only: every count is set to 0 just before
-    # a path is driven and read just after
-    total = dict.fromkeys(KERNELS, 0)
-    model, style = phase_global(ops, device, gen, total)
-    print(f"phase global done at {time.perf_counter() - t0:.1f} s")
-    seg, region, plan = phase_masked(ops, model, style, device, gen, total)
-    print(f"phase masked done at {time.perf_counter() - t0:.1f} s")
-    phase_cli(ops, device, gen, total, smi)
-    print(f"phase cli done at {time.perf_counter() - t0:.1f} s")
-    phase_ultra(ops, model, device, gen, total, smi)
-    print(f"phase ultra done at {time.perf_counter() - t0:.1f} s")
-    phase_serve(ops, model, device, gen, total, smi)
-    print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
-    phase_train(device, gen, smi)
-    print(f"phase train done at {time.perf_counter() - t0:.1f} s")
-    phase_tools(ops, model, seg, device, gen, total, smi)
-    print(f"phase tools done at {time.perf_counter() - t0:.1f} s")
-    phase_parallel(ops, model, style, seg, region, plan, gen, total, smi)
-    print(f"phase parallel done at {time.perf_counter() - t0:.1f} s")
-    phase_native(model, seg, device, gen, smi)
-    print(f"phase native done at {time.perf_counter() - t0:.1f} s")
-    phase_spatial(ops, model, device, gen, smi)
-    print(f"phase spatial done at {time.perf_counter() - t0:.1f} s")
-    phase_spatial_train(ops, device, gen, smi)
-    print(f"phase spatial train done at {time.perf_counter() - t0:.1f} s")
+    def build():
+        t0 = time.perf_counter()
+        path, compile_s = _build.build()
+        _build.load()
+        print(f"build: {path.name} (nvcc {compile_s:.1f} s, total "
+              f"{time.perf_counter() - t0:.1f} s)")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    phases.run("build", build)
+    tmp = tempfile.TemporaryDirectory(prefix="vstnet_smoke_")
+    packages = None
+    try:
+        # phase 4's model and phase 5's segmenter, made from their seeds
+        # before phase 3 so that phase 13's packages compile beside phases
+        # 3-5
+        model = StyleModel.random_init(seed=0, device=device)
+        seg = Segmenter.load(None, seed=0, device=device)
+        packages = phases.run("export", Packages, model, seg, device,
+                              tmp.name)
+        gen = torch.Generator().manual_seed(0)
+        worst = phases.run("kernels", phase_kernels, cf, att, dw, device,
+                           gen)
+        # launches of the main paths only: every count is set to 0 just
+        # before a path is driven and read just after
+        total = dict.fromkeys(KERNELS, 0)
+        style = phases.run("global", phase_global, ops, model, device, gen,
+                           total)
+        region, plan = phases.run("masked", phase_masked, ops, model, seg,
+                                  style, device, gen, total)
+        spt = phases.run("spatial train f64", spt_references, device)
+        # no compile runs beside a phase that prints a host clock
+        phases.run("package join", packages.join)
+        phases.run("cli", phase_cli, ops, device, gen, total, smi)
+        phases.run("ultra", phase_ultra, ops, model, device, gen, total,
+                   smi)
+        phases.run("serve", phase_serve, ops, model, device, gen, total,
+                   smi)
+        phases.run("train", phase_train, device, gen, smi)
+        phases.run("tools", phase_tools, ops, model, seg, device, gen,
+                   total, smi, packages.exported)
+        phases.run("parallel", phase_parallel, ops, model, style, seg,
+                   region, plan, gen, total, smi)
+        phases.run("native", phase_native, model, seg, device, gen, smi,
+                   packages, phases)
+    finally:
+        if packages is not None:
+            packages.close()
+        tmp.cleanup()
+    phases.run("spatial", phase_spatial, ops, model, device, gen, smi)
+    phases.run("spatial train", phase_spatial_train, ops, device, smi, spt)
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
-    rec = phase_timings(cf, att, dw, device, gen)
-    phase_programs(model, style, seg, region, plan, device, gen)
-    print(f"phase timings done at {time.perf_counter() - t0:.1f} s")
+    rec = phases.run("timings", phase_timings, cf, att, dw, device, gen)
+    phases.run("programs", phase_programs, model, style, seg, region, plan,
+               device, gen)
+    print(phases.line())
 
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -3,7 +3,9 @@ the card(s).
 
     python3 scripts/torch_spatial_train_phase.py        (from the repo root)
 
-Runs chip_smoke.phase_spatial_train: one training step of the random
+Runs chip_smoke.spt_references (the unsharded float64 gradients, which
+the whole script computes beside its package compiles) and
+chip_smoke.phase_spatial_train: one training step of the random
 full-depth PHOTO_CONFIG (remat on, float32 with TF32 off) on a 1024x1024
 content and style at B=1, image and temporal phase, through
 parallel_train_step(rows=...) on a (1, S) mesh, S = 2 and 4, against
@@ -36,8 +38,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda:0")
-    gen = torch.Generator().manual_seed(0)
-    chip_smoke.phase_spatial_train(ops, device, gen, smi)
+    refs = chip_smoke.spt_references(device)
+    print(f"float64 references in {time.perf_counter() - t0:.1f} s")
+    chip_smoke.phase_spatial_train(ops, device, smi, refs)
     print(f"phase spatial train done at {time.perf_counter() - t0:.1f} s")
 
 

@@ -42,7 +42,7 @@ def main():
     seg = Segmenter.load(None, seed=0, device=device)
     total = dict.fromkeys(chip_smoke.KERNELS, 0)
     chip_smoke.phase_tools(ops, model, seg, device,
-                           torch.Generator().manual_seed(0), total, smi)
+                           torch.Generator().manual_seed(0), total, smi, {})
     print(f"launches {total}; phase tools done in "
           f"{time.perf_counter() - t0:.1f} s")
 

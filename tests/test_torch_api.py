@@ -189,6 +189,44 @@ def test_transfer_use_double_matches_jax(rng):
                                           torch.from_numpy(zs)))
 
 
+@pytest.mark.parametrize("shards", [1, 2], ids=["whole", "rows"])
+def test_card_statistics_are_summed_in_float64(rng, monkeypatch, shards):
+    """cwct._accumulate: a float32 latent's statistics are summed in
+    float64 on a CUDA card, whose float32 Gram lies ~20x further from
+    float64 than the CPU's, and in float32 on the CPU. With the card's
+    rule applied here, _stats and row_stats of a float32 latent equal the
+    float64 statistics of the same values rounded once, bit for bit, and
+    JAX's _feat_stats within float32's rounding; the CPU's own rule
+    leaves them float32 sums."""
+    from types import SimpleNamespace
+
+    card = SimpleNamespace(dtype=torch.float32, device=torch.device("cuda"))
+    assert cwct._accumulate(card) == torch.float64
+    assert cwct._accumulate(torch.zeros(1)) == torch.float32
+    assert cwct._accumulate(torch.zeros(1, dtype=torch.float64)) == \
+        torch.float64
+    z = torch.from_numpy(_latent(rng, 2, 16, 16))
+
+    def stats(x):
+        if shards == 1:
+            return cwct._stats(cwct._nhwc_as_gcn(x))
+        return cwct.row_stats(list(x.chunk(shards, dim=1)))
+
+    plain = stats(z)
+    monkeypatch.setattr(cwct, "_accumulate", lambda x: (
+        torch.float64 if x.dtype == torch.float32 else x.dtype))
+    got = stats(z)
+    for g, w, p in zip(got, stats(z.double()), plain):
+        assert g.dtype == torch.float32 and torch.equal(g, w.float())
+        assert not torch.equal(g, p)
+    mean, cov = jax.vmap(jcwct._feat_stats)(jnp.asarray(z.numpy()).reshape(
+        2, -1, 32))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(mean), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(cov), rtol=0,
+                               atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # Colour, resize, the photo pipeline
 # ---------------------------------------------------------------------------

@@ -717,3 +717,36 @@ def test_row_sharded_train_step_on_card_matches_unsharded(dev):
         states[1].net.parameters(), states[0].net.parameters())])
     assert float(diff.max()) <= 3 * tc.lr
     assert float(diff.mean()) < 1e-6
+
+
+def test_cwct_statistics_on_card_match_float64(dev):
+    """The float32 cWCT on the card against float64, on the latents of
+    chip_smoke.py's float32-vs-float64 training batch (PHOTO_CONFIG at full
+    depth, weights from seed 0, _train_batch with seed 0 at 128x128 B=2;
+    the covariances' condition numbers 5e3-6e3): the covariances of the
+    whole latent and of two row shards within 5e-7 of their max, the
+    transfer within 2e-5 of its max. Summed in float32 by cuBLAS, the
+    covariances lay 4.2e-6 off (the CPU's float32 sums 2.0e-7) and the
+    transfer 1.0e-4 (the CPU's 5.1e-6), which took the training step's
+    gradient 1.04e-2 of a tensor's max from float64 (ROADMAP §3)."""
+    from chip_smoke import _train_batch
+    from vstnet_tpu_torch.config import PHOTO_CONFIG
+    from vstnet_tpu_torch.models import cwct
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    net = RevResNet(PHOTO_CONFIG, device=dev).init_weights(
+        torch.Generator().manual_seed(0)).double()
+    a, s, _, _ = _train_batch(torch.Generator().manual_seed(0), 2, 128, dev)
+    with torch.no_grad():
+        zc, zs = net(a.double()), net(s.double())
+    for z in (zc, zs):
+        _, want = cwct._stats(cwct._nhwc_as_gcn(z))
+        _, whole = cwct._stats(cwct._nhwc_as_gcn(z.float()))
+        _, rows = cwct.row_stats(list(z.float().chunk(2, dim=1)))
+        assert whole.dtype == rows.dtype == torch.float32
+        assert rel(whole, want) <= 5e-7 and rel(rows, want) <= 5e-7
+    got = cwct.transfer(zc.float(), zs.float())
+    assert got.dtype == torch.float32
+    assert rel(got, cwct.transfer(zc, zs)) <= 2e-5

@@ -99,15 +99,33 @@ def _inv_lower(l):
     return torch.linalg.solve_triangular(l, eye.expand_as(l), upper=False)
 
 
+def _accumulate(x):
+    """The dtype the statistics of x (float32 or float64) are summed in:
+    float64 for float32 on a CUDA card, x's own otherwise. The card's
+    float32 Gram over the pixels (cuBLAS, one chain along them) lies ~20x
+    further from float64 than the CPU's (4.2e-6 against 2.0e-7 of its max
+    at 32 channels and 1024 pixels), and the Cholesky factors and their
+    inverse carry that times the covariance's condition number (~6e3 at
+    the first cWCT of chip_smoke.py's float32-vs-float64 training batch)
+    into the transfer and the training step's gradient
+    (scripts/torch_cwct_f32_card.py)."""
+    if x.dtype == torch.float32 and x.device.type == "cuda":
+        return torch.float64
+    return x.dtype
+
+
 def _stats(x):
     """x: (B, G, C, N) -> mean (B, C), covariance (B, C, C) with /(n-1),
-    in float32 (float64 for a float64 x)."""
+    in float32 (float64 for a float64 x), summed in _accumulate(x) and
+    rounded once."""
     x = at_least_f32(x)
+    out = x.dtype
+    x = x.to(_accumulate(x))
     b, g, c, n = x.shape
     mean = x.mean(dim=(1, 3))
     xc = (x - mean[:, None, :, None]).transpose(1, 2).reshape(b, c, g * n)
     cov = torch.bmm(xc, xc.transpose(1, 2)) / (g * n - 1)
-    return mean, cov
+    return mean.to(out), cov.to(out)
 
 
 def _factors(x, eps, use_double: bool = False):
@@ -230,11 +248,13 @@ def row_stats(shards):
     runs under GSPMD: the shards' sums, added on the first device, give
     the mean; each shard's Gram of its pixels centred on that mean, added
     there, gives the covariance. float32 with TF32 off (float64 for
-    float64 shards); n is summed from the shapes on the host."""
+    float64 shards), summed in _accumulate of the first shard, as _stats
+    sums the whole latent; n is summed from the shapes on the host."""
     dev = shards[0].device
     n = sum(s.shape[1] * s.shape[2] for s in shards)
-    xs = [at_least_f32(s).reshape(s.shape[0], -1, s.shape[-1])
-          for s in shards]
+    out = at_least_f32(shards[0]).dtype
+    acc = _accumulate(at_least_f32(shards[0]))
+    xs = [s.to(acc).reshape(s.shape[0], -1, s.shape[-1]) for s in shards]
     with true_f32_matmul():
         total = xs[0].sum(dim=1)
         for x in xs[1:]:
@@ -245,7 +265,7 @@ def row_stats(shards):
             xc = x - mean.to(x.device, non_blocking=True)[:, None]
             g = torch.bmm(xc.transpose(1, 2), xc).to(dev, non_blocking=True)
             gram = g if gram is None else gram + g
-    return mean, gram / (n - 1)
+    return mean.to(out), (gram / (n - 1)).to(out)
 
 
 def style_factors_rows(shards, eps: float = EPS_DEFAULT):
