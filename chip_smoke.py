@@ -78,7 +78,12 @@ order; any failure raises and the process exits non-zero:
               as a yardstick; SegFormer-B4 alone (CUDA events, and one call
               under torch.profiler for its device time and idle share);
               both programs' frames/s and the masked program's stages,
-              with CUDA events; the remap's label counts (scatter_add_)
+              with CUDA events, the regional cWCT's ms and peak memory at
+              K = 32, and its statistics against float64 on the batch's
+              latents under synthetic label maps (each valid region's
+              covariance within 5e-7 of its max, transfer_masked and
+              transfer_masked_factored within 2e-5 of the transfer's
+              max); the remap's label counts (scatter_add_)
               against torch.bincount; for the record, outside the kernels
               line, K1-K5 at the tiler's, the smoke CLI's photo test's and
               the service's shapes.
@@ -105,6 +110,9 @@ order; any failure raises and the process exits non-zero:
               exact overlap (the receptive field, rounded up to a multiple
               of 4) against whole-image StyleModel.stylize (> 55 dB), the
               fused route on the same grid against it (>= 40 dB), the
+              regional pass 1's statistics and transform (fused, synthetic
+              label maps) against float64 of the owned latent rows (5e-7,
+              2e-5, as phase 6), the
               default overlap 128 against the whole image (printed); then
               the image CLI on the 4K PNG in --fast global, --auto_seg,
               --styles A B --alpha_s 0.3 0.7, --alpha_c 0.5 and their
@@ -1485,6 +1493,235 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
           f"{ms:.2f} ms, peak memory {peak / 2 ** 20:.1f} MiB above the "
           f"{base / 2 ** 20:.1f} MiB already held")
 
+    # the regional statistics against float64 on this batch's latents, cast
+    # up, under synthetic label maps at the same bucket
+    zs = rf.encode_fast(fast, style.to(bf), cfg)
+    cm = region_masks(1, k, *z_c.shape[:3]).to(device)
+    sm = region_masks(2, k, *zs.shape[:3]).to(device)
+    cov, masked_d, factored_d = region_distances(z_c.float(), zs.float(), cm,
+                                                 sm, k)
+    print(f"gate regional cWCT 512x512 B={batch} K={k} (the batch's bf16 "
+          f"latents cast up, synthetic label maps) vs float64: covariances "
+          f"{cov:.3e} of their max (<= {REGION_COV_GATE}), transfer_masked "
+          f"{masked_d:.3e} and transfer_masked_factored {factored_d:.3e} of "
+          f"the transfer's max (<= {REGION_TRANSFER_GATE})")
+    if not (cov <= REGION_COV_GATE
+            and max(masked_d, factored_d) <= REGION_TRANSFER_GATE):
+        raise AssertionError("regional cWCT statistics off float64")
+
+
+# ---------------------------------------------------------------------------
+# The regional cWCT against float64 (phases 6 and 8; the card test
+# tests/test_torch_cuda.py::test_region_statistics_on_card_match_float64)
+# ---------------------------------------------------------------------------
+
+# A float32 latent's regional statistics on the card: each valid region's
+# covariance within REGION_COV_GATE of its own max from the float64
+# statistics of the same values, and the regional transfer within
+# REGION_TRANSFER_GATE of the max of the float64 transfer (the global
+# cWCT's bounds, test_cwct_statistics_on_card_match_float64)
+REGION_COV_GATE = 5e-7
+REGION_TRANSFER_GATE = 2e-5
+# the side of the one small square region of every synthetic label map
+REGION_SMALL = 20
+
+
+def region_masks(seed, n_labels, b, h, w):
+    """(b, h, w) int32 label maps: n_labels distinct class ids in [0, 150)
+    drawn by numpy's generator n_labels (so maps of one n_labels share
+    them), laid out by its generator `seed`. All ids but the last tile a
+    grid of blocks (each on at least two blocks); the last is one
+    REGION_SMALL-square region a map, which MIN_PIXELS and
+    MAX_RATIO_RESEARCH keep valid against a map of the same construction
+    at up to ~30x the area."""
+    import numpy as np
+
+    ids = np.random.default_rng(n_labels).choice(
+        150, n_labels, replace=False).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    g = math.ceil(math.sqrt(2 * (n_labels - 1)))
+    ys, xs = np.arange(h) * g // h, np.arange(w) * g // w
+    out = np.empty((b, h, w), np.int32)
+    for i in range(b):
+        cells = ids[rng.permutation(g * g) % (n_labels - 1)].reshape(g, g)
+        out[i] = cells[ys[:, None], xs[None, :]]
+        y0 = int(rng.integers(0, h - REGION_SMALL))
+        x0 = int(rng.integers(0, w - REGION_SMALL))
+        out[i, y0:y0 + REGION_SMALL, x0:x0 + REGION_SMALL] = ids[-1]
+    return torch.from_numpy(out)
+
+
+def _rel(a, ref):
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def region_f64(x, m, labels):
+    """{label: (count, mean, covariance with /(n-1))} of the rows of x
+    (N, C) under labels m (N,), for each real label of `labels`, in
+    float64 from the float64 copy of x: the label's rows picked by a
+    boolean mask, their mean, their centred Gram."""
+    x = x.double()
+    out = {}
+    for lab in labels.tolist():
+        if lab < 0:
+            continue
+        rows = x[m == lab]
+        mean = rows.mean(dim=0)
+        xc = rows - mean
+        out[lab] = (rows.shape[0], mean,
+                    xc.t() @ xc / max(rows.shape[0] - 1, 1))
+    return out
+
+
+def _valid_f64(nc, ns):
+    from vstnet_tpu_torch.models import cwct
+
+    r = cwct.MAX_RATIO_RESEARCH
+    return (nc > cwct.MIN_PIXELS and ns > cwct.MIN_PIXELS and nc < r * ns
+            and ns < r * nc)
+
+
+def region_transfer_f64(x, m, sc, ss):
+    """The regional cWCT of rows x (N, C) under labels m, in float64 from
+    the float64 statistics sc (the content's) and ss (the style's) of
+    region_f64: per valid label T = Ls Lc^{-1} (Cholesky factors), b =
+    mu_s - T mu_c, applied to its rows; every other row keeps its
+    content."""
+    x = x.double()
+    y = x.clone()
+    for lab, (nc, mc, cc) in sc.items():
+        if lab not in ss or not _valid_f64(nc, ss[lab][0]):
+            continue
+        ns, ms, cs = ss[lab]
+        lc = torch.linalg.cholesky(cc)
+        t = torch.linalg.cholesky(cs) @ torch.linalg.solve_triangular(
+            lc, torch.eye(lc.shape[0], dtype=lc.dtype, device=lc.device),
+            upper=False)
+        sel = m == lab
+        y[sel] = x[sel] @ t.t() + (ms - t @ mc)
+    return y
+
+
+def _cov_worst(got, ref, other, labels):
+    """The largest distance of a valid region's covariance from float64,
+    each of its own max. got = (counts, means, covariances) by the index
+    of `labels`; ref and other: region_f64 of this side and the other."""
+    worst = 0.0
+    for i, lab in enumerate(labels.tolist()):
+        if lab in ref and lab in other and _valid_f64(ref[lab][0],
+                                                      other[lab][0]):
+            worst = max(worst, _rel(got[2][i], ref[lab][2]))
+    return worst
+
+
+def region_distances(zc, zs, cm, sm, k):
+    """The regional cWCT of the latent zc (B, H, W, C) by the style latent
+    zs (1, Hs, Ws, C) under label maps cm (B, H, W) and sm (1, Hs, Ws) at
+    the latents' resolution with capacity k, on zc's device, against
+    float64 on the float64 copies of the same values: (the worst valid
+    region's covariance distance, content and style, each of its own max;
+    transfer_masked's and transfer_masked_factored's distance of the
+    float64 transfer's max)."""
+    from vstnet_tpu_torch.models import cwct
+
+    b, c = zc.shape[0], zc.shape[-1]
+    xc, xs = zc.reshape(b, -1, c), zs.reshape(-1, c)
+    cmr = cm.reshape(b, -1).to(torch.int32)
+    smr = sm.reshape(-1).to(torch.int32)
+    labels, ns, mean_s, cov_s = cwct.style_region_factors(zs, sm, k)
+    ss = region_f64(xs, smr, labels)
+    want = torch.empty(zc.shape, dtype=torch.float64, device=zc.device)
+    worst = 0.0
+    for i in range(b):
+        lab_i = cwct._padded_labels(cmr[i], k)
+        sc = region_f64(xc[i], cmr[i], lab_i)
+        worst = max(worst,
+                    _cov_worst(cwct._region_stats(xc[i], cmr[i], lab_i), sc,
+                               ss, lab_i),
+                    _cov_worst((ns, mean_s, cov_s), ss, sc, labels))
+        want[i] = region_transfer_f64(xc[i], cmr[i], sc, ss).reshape(
+            want.shape[1:])
+    masked = cwct.transfer_masked(zc, zs.expand(b, *zs.shape[1:]), cm,
+                                  sm.expand(b, *sm.shape[1:]), max_labels=k)
+    factored = cwct.transfer_masked_factored(zc, cm, labels, ns, mean_s,
+                                             cov_s)
+    return worst, _rel(masked, want), _rel(factored, want)
+
+
+class _TilerRegionProbe:
+    """Within the block, models/ultra.py's regional pass 1 is recorded
+    through the cwct functions it calls: the rows and labels of every
+    region_moments call (the style's latent, then each tile batch's with
+    -2 on the pixels a tile does not own), the statistics of every
+    stats_from_moments call (the style's, then the content's), and the
+    transforms of region_transforms, after which the block stops the run
+    (pass 2 is not run)."""
+
+    class Stop(Exception):
+        pass
+
+    def __enter__(self):
+        from vstnet_tpu_torch.models import cwct
+
+        self.cwct = cwct
+        self.saved = {n: getattr(cwct, n) for n in (
+            "region_moments", "stats_from_moments", "region_transforms")}
+        self.moments, self.stats = [], []
+
+        def moments(x, m, labels, *args, **kw):
+            c = x.shape[-1]
+            mr = m.reshape(-1)
+            own = mr != -2
+            self.moments.append((x.reshape(-1, c)[own], mr[own]))
+            return self.saved["region_moments"](x, m, labels, *args, **kw)
+
+        def stats(*args, **kw):
+            self.stats.append(self.saved["stats_from_moments"](*args, **kw))
+            return self.stats[-1]
+
+        def transforms(labels, *args, **kw):
+            self.labels = labels
+            self.tsb = self.saved["region_transforms"](labels, *args, **kw)
+            raise self.Stop
+
+        cwct.region_moments = moments
+        cwct.stats_from_moments = stats
+        cwct.region_transforms = transforms
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        for name, fn in self.saved.items():
+            setattr(self.cwct, name, fn)
+        return kind is self.Stop
+
+
+def tiler_region_distances(model, content, style, cmask, smask):
+    """Pass 1 of ultra.stylize_tiled_masked on the fused route (the
+    default tile and overlap, capacity cwct.label_capacity(cmask)): the
+    per-label statistics it finalises for the style and for the content
+    (the moments of the tile batches' owned pixels, added up) against
+    float64 statistics of the same owned latent rows, and the transform
+    they give (region_transforms, applied to those rows by apply_regions)
+    against the float64 transfer of the rows. Returns (worst valid
+    region's covariance distance, transfer distance, the probe)."""
+    from vstnet_tpu_torch.models import cwct, ultra
+
+    k = cwct.label_capacity(cmask)
+    with _TilerRegionProbe() as probe:
+        ultra.stylize_tiled_masked(
+            model.net, content, style, cmask, smask, model.cfg,
+            tile=ULTRA_TILE, overlap=ULTRA_OVERLAP, max_labels=k,
+            fast_params=model.fast_params)
+    labels = probe.labels
+    (xs, ms), content_rows = probe.moments[0], probe.moments[1:]
+    xc = torch.cat([x for x, _ in content_rows])
+    mc = torch.cat([m for _, m in content_rows])
+    ss, sc = region_f64(xs, ms, labels), region_f64(xc, mc, labels)
+    worst = max(_cov_worst(probe.stats[0], ss, sc, labels),
+                _cov_worst(probe.stats[-1], sc, ss, labels))
+    got = cwct.apply_regions(xc, mc, labels, *probe.tsb)
+    return worst, _rel(got, region_transfer_f64(xc, mc, sc, ss)), probe
+
 
 # ---------------------------------------------------------------------------
 # Phase 7: the command-line entry points
@@ -2056,6 +2293,15 @@ def phase_ultra(ops, model, device, gen, total, smi):
     if not p > ULTRA_GATE:
         raise AssertionError(f"ultra exact PSNR {p}")
     _check_tile_latents(model, content, grid)
+    cov, tr, _ = tiler_region_distances(
+        model, content, style, region_masks(3, 32, 1, h, w).to(device),
+        region_masks(4, 32, 1, *ULTRA_STYLE).to(device))
+    print(f"gate ultra regional pass 1 (fused, K=32, synthetic label maps) "
+          f"vs float64 of the owned latent rows: covariances {cov:.3e} of "
+          f"their max (<= {REGION_COV_GATE}), transfer {tr:.3e} of its max "
+          f"(<= {REGION_TRANSFER_GATE})")
+    if not (cov <= REGION_COV_GATE and tr <= REGION_TRANSFER_GATE):
+        raise AssertionError("ultra regional statistics off float64")
 
     with _UltraProbe(ops) as probe:
         ops.reset_launch_counts()

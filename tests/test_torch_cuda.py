@@ -750,3 +750,98 @@ def test_cwct_statistics_on_card_match_float64(dev):
     got = cwct.transfer(zc.float(), zs.float())
     assert got.dtype == torch.float32
     assert rel(got, cwct.transfer(zc, zs)) <= 2e-5
+
+
+def _tiler_on_cpu(probe):
+    """The tiler's regional pass 1 replayed on the CPU from a
+    chip_smoke._TilerRegionProbe's rows: the style's moments, each tile
+    batch's owned rows' moments added up, the statistics, the transform
+    and its apply, as models/ultra.py runs them, in the CPU's float32.
+    Returns the same distances as chip_smoke.tiler_region_distances."""
+    from chip_smoke import _cov_worst, _rel, region_f64, region_transfer_f64
+    from vstnet_tpu_torch.models import cwct
+
+    labels = probe.labels.cpu()
+    rows = [(x.cpu(), m.cpu()) for x, m in probe.moments]
+    st = cwct.stats_from_moments(*cwct.region_moments(*rows[0], labels))
+    acc = None
+    for x, m in rows[1:]:
+        d = cwct.region_moments(x, m, labels)
+        acc = d if acc is None else tuple(a + b for a, b in zip(acc, d))
+    sc = cwct.stats_from_moments(*acc)
+    xc = torch.cat([x for x, _ in rows[1:]])
+    mc = torch.cat([m for _, m in rows[1:]])
+    ref_s, ref_c = region_f64(*rows[0], labels), region_f64(xc, mc, labels)
+    worst = max(_cov_worst(st, ref_s, ref_c, labels),
+                _cov_worst(sc, ref_c, ref_s, labels))
+    tsb = cwct.region_transforms(labels, *sc, *st)
+    got = cwct.apply_regions(xc, mc, labels, *tsb)
+    return worst, _rel(got, region_transfer_f64(xc, mc, ref_c, ref_s))
+
+
+def test_region_statistics_on_card_match_float64(dev):
+    """The regional cWCT's float32 statistics on the card against float64
+    of the same values, on PHOTO_CONFIG at full depth (weights from seed
+    0) and smooth frames (chip_smoke._frames), under synthetic label maps
+    (chip_smoke.region_masks) at the capacity buckets 8 and 32, each with
+    a 400-pixel region: the masked video program's bf16 latents at 512x512
+    B=8 cast up to float32, the photo pipeline's float32 standard-path
+    latent at 1024x1024 B=1 (style 512x512), and pass 1 of the 4K tiler
+    (3840x2160 content, 1024x576 style, fused route). Each valid region's
+    covariance within 5e-7 of its own max, transfer_masked's,
+    transfer_masked_factored's and the tiler's transfer within 2e-5 of the
+    float64 transfer's max, as the global cWCT's statistics. Every
+    distance is printed beside the CPU's float32 one on the same values
+    (run with -s to see them)."""
+    from chip_smoke import (
+        REGION_COV_GATE,
+        REGION_TRANSFER_GATE,
+        ULTRA_HW,
+        ULTRA_STYLE,
+        _frames,
+        region_distances,
+        region_masks,
+        tiler_region_distances,
+    )
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    model = StyleModel.random_init(seed=0, device=dev)
+    cfg, fp = model.cfg, model.fast_params
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        frames, style = _frames(gen, 8, 512, dev), _frames(gen, 1, 512, dev)
+        big = _frames(gen, 1, 1024, dev)
+        cases = {
+            "masked program 512x512 B=8 (bf16 latent)": tuple(
+                rf.encode_fast(fp, x.to(torch.bfloat16), cfg).float()
+                for x in (frames, style)),
+            "photo pipeline 1024x1024 B=1 (float32 latent)": (
+                model.net.encode(big), model.net.encode(style))}
+        content4k = _frames(gen, 1, ULTRA_HW, dev)
+        style4k = _frames(gen, 1, ULTRA_STYLE, dev)
+    rows = []
+    for what, (zc, zs) in cases.items():
+        for k in (8, 32):
+            cm = region_masks(1, k, *zc.shape[:3])
+            sm = region_masks(2, k, *zs.shape[:3])
+            assert cwct.label_capacity(cm, sm) == k
+            card = region_distances(zc, zs, cm.to(dev), sm.to(dev), k)
+            cpu = region_distances(zc.cpu(), zs.cpu(), cm, sm, k)
+            rows.append((f"{what} K={k}", card[0], card[1:], cpu[0],
+                         cpu[1:]))
+    cm = region_masks(3, 32, 1, *ULTRA_HW).to(dev)
+    sm = region_masks(4, 32, 1, *ULTRA_STYLE).to(dev)
+    worst, tr, probe = tiler_region_distances(model, content4k, style4k, cm,
+                                              sm)
+    cpu = _tiler_on_cpu(probe)
+    rows.append(("4K tiler pass 1 K=32 (bf16 latent)", worst, (tr,), cpu[0],
+                 cpu[1:]))
+    for what, cov, trs, cov_cpu, trs_cpu in rows:
+        print(f"regional statistics {what} on {torch.cuda.get_device_name(0)}"
+              f": covariance {cov:.3e} (CPU {cov_cpu:.3e}), transfer "
+              + ", ".join(f"{a:.3e} (CPU {b:.3e})"
+                          for a, b in zip(trs, trs_cpu)))
+    for what, cov, trs, _, _ in rows:
+        assert cov <= REGION_COV_GATE, what
+        assert max(trs) <= REGION_TRANSFER_GATE, what

@@ -214,6 +214,139 @@ def test_region_moments_match_jax(rng, chunk):
         assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
 
 
+def _float32_moments(x, m, labels, chunk):
+    """The CPU's regional moments spelled out: float32 one-hot products,
+    summed chunk by chunk of `chunk` rows in float32."""
+    k, c = labels.shape[0], x.shape[-1]
+    x, m = x.reshape(-1, c).float(), m.reshape(-1)
+    cnt, sm, gm = (torch.zeros(s) for s in ((k,), (k, c), (k * c, c)))
+    for lo in range(0, x.shape[0], chunk):
+        xf = x[lo:lo + chunk]
+        w = (m[lo:lo + chunk, None] == labels[None, :]).float()
+        cnt += w.sum(dim=0)
+        sm += w.t() @ xf
+        gm += (w[:, :, None] * xf[:, None, :]).reshape(-1, k * c).t() @ xf
+    return cnt, sm, gm.reshape(k, c, c)
+
+
+def _card_rule(monkeypatch):
+    """cwct._accumulate's rule on a CUDA card, applied to CPU tensors."""
+    monkeypatch.setattr(cwct, "_accumulate", lambda x: (
+        torch.float64 if x.dtype == torch.float32 else x.dtype))
+
+
+def _tiled_region_stats(monkeypatch, net, cfg, rng):
+    """ultra.stylize_tiled_masked on a small image (15 tiles in 4 batches)
+    with the region_moments inputs (rows, labels) of every call and the
+    statistics of every stats_from_moments call recorded: the style's
+    first, then each tile batch's, and the finalised ones."""
+    from vstnet_tpu_torch.models import ultra
+
+    calls, stats = [], []
+    moments, finish = cwct.region_moments, cwct.stats_from_moments
+
+    def record_moments(x, m, labels, *args, **kw):
+        calls.append((x, m))
+        return moments(x, m, labels, *args, **kw)
+
+    def record_stats(*args, **kw):
+        stats.append(finish(*args, **kw))
+        return stats[-1]
+
+    monkeypatch.setattr(cwct, "region_moments", record_moments)
+    monkeypatch.setattr(cwct, "stats_from_moments", record_stats)
+    content = torch.from_numpy(rng.uniform(size=(1, 64, 96, 3)).astype(
+        np.float32))
+    style = torch.from_numpy(rng.uniform(size=(1, 32, 32, 3)).astype(
+        np.float32))
+    cm = _blocky(rng, [3, 52, 76], 1, 64, 96)
+    sm = _blocky(rng, [3, 52, 76], 1, 32, 32)
+    cm[:, :8, :24], sm[:, :8, :24] = 3, 3          # every label on both sides
+    cm[:, 8:16, :24], sm[:, 8:16, :24] = 52, 52
+    cm[:, 16:24, :24], sm[:, 16:24, :24] = 76, 76
+    ultra.stylize_tiled_masked(net, content, style, torch.from_numpy(cm),
+                               torch.from_numpy(sm), cfg, tile=32,
+                               overlap=8, max_labels=4)
+    monkeypatch.setattr(cwct, "region_moments", moments)
+    monkeypatch.setattr(cwct, "stats_from_moments", finish)
+    labels = cwct._padded_labels(torch.from_numpy(cm), 4)
+    return calls, (stats[0], stats[-1]), labels
+
+
+@pytest.mark.parametrize("what", ["float32", "bf16", "tiler"])
+def test_card_region_moments_are_summed_in_float64(rng, monkeypatch, what):
+    """cwct._accumulate in region_moments: a float32 or bf16 latent's
+    regional moments are summed in float64 on a CUDA card, whose float32
+    sums put the regional covariances up to 1.5e-6 of their max from
+    float64 (tests/test_torch_cuda.py::
+    test_region_statistics_on_card_match_float64), and in float32 on the
+    CPU. With the card's rule applied here: the moments equal those of the
+    float64 copy of the same values bit for bit, in chunks of 16384 rows
+    (REGION_CHUNK float32 rows' bytes); _region_stats equals their float64
+    statistics rounded once, bit for bit, and JAX's within float32's
+    rounding; the tiler's finalised statistics equal the float64 statistics
+    of its style's and its tile batches' summed moments, rounded once. With
+    the CPU's own rule everything equals the float32 sums of
+    _float32_moments at REGION_CHUNK rows bit for bit."""
+    if what == "tiler":
+        cfg = RevResNetConfig(n_blocks=(1, 1, 1))
+        net = RevResNet(cfg, device="cpu").init_weights(
+            torch.Generator().manual_seed(0))
+        plain_calls, plain, labels = _tiled_region_stats(
+            monkeypatch, net, cfg, np.random.default_rng(1))
+        _card_rule(monkeypatch)
+        calls, got, _ = _tiled_region_stats(monkeypatch, net, cfg,
+                                            np.random.default_rng(1))
+        for rule, recorded, stats, moments in (
+                ("cpu", plain_calls, plain, lambda x, m: _float32_moments(
+                    x, m, labels, cwct.REGION_CHUNK)),
+                ("card", calls, got, lambda x, m: cwct.region_moments(
+                    x.double(), m, labels))):
+            want_s = cwct.stats_from_moments(*moments(*recorded[0]))
+            acc = tuple(torch.zeros_like(a) for a in moments(*recorded[0]))
+            for x, m in recorded[1:]:
+                for a, d in zip(acc, moments(x, m)):
+                    a += d
+            want_c = cwct.stats_from_moments(*acc)
+            assert len(recorded) == 5, rule              # style, 4 batches
+            for g, w in zip(stats[0] + stats[1], want_s + want_c):
+                assert g.dtype == torch.float32, rule
+                assert torch.equal(g, w.float()), rule
+        assert not torch.equal(got[1][2], plain[1][2])
+        return
+
+    c = 32
+    x = torch.from_numpy(_latent(rng, 1, 24, 32, c).reshape(-1, c))
+    if what == "bf16":
+        x = x.to(torch.bfloat16)
+    m = torch.from_numpy(_blocky(rng, [4, 7, 30], 1, 24, 32).reshape(-1))
+    labels = torch.tensor([4, 7, 30, 99, -1, -1, -1, -1], dtype=torch.int32)
+    monkeypatch.setattr(cwct, "REGION_CHUNK", 256)       # 768 rows: chunks
+    plain = cwct.region_moments(x, m, labels)
+    for g, w in zip(plain, _float32_moments(x, m, labels, 256)):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    plain_stats = cwct._region_stats(x, m, labels)
+    for g, w in zip(plain_stats, cwct.stats_from_moments(*plain)):
+        assert torch.equal(g, w)
+
+    _card_rule(monkeypatch)
+    got = cwct.region_moments(x, m, labels)
+    want = cwct.region_moments(x.double(), m, labels)
+    for g, w, w128 in zip(got, want, cwct.region_moments(x.double(), m,
+                                                         labels, chunk=128)):
+        assert g.dtype == torch.float64
+        assert torch.equal(g, w) and torch.equal(g, w128)
+    stats = cwct._region_stats(x, m, labels)
+    for g, w in zip(stats, cwct.stats_from_moments(*want)):
+        assert g.dtype == torch.float32 and torch.equal(g, w.float())
+    assert not torch.equal(stats[2], plain_stats[2])
+    jwant = jcwct.stats_from_moments(*jcwct.region_moments(
+        jnp.asarray(x.float().numpy()), jnp.asarray(m.numpy()),
+        jnp.asarray(labels.numpy())))
+    for g, w in zip(stats, jwant):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
 def _masked_case(rng):
     c = 32
     zc = _latent(rng, 2, 32, 32, c)

@@ -14,10 +14,11 @@ free reshape to it, and an NHWC latent (B, H, W, C) is its G = 1 case.
 
 Precision: statistics, Cholesky factors and transforms are float32 with
 TF32 off, even when the latent is bf16 (float64 on a float64 latent, for
-reference runs: ops.at_least_f32); the apply sums in float32 and
-rounds once to the latent's dtype. There is no hand-written kernel here:
-the 32x32 statistics, the Cholesky, the triangular solve and the apply
-product are torch ops.
+reference runs: ops.at_least_f32); the statistics are summed in float64
+on a CUDA card and rounded once (_accumulate); the apply sums in float32
+and rounds once to the latent's dtype. There is no hand-written kernel
+here: the 32x32 statistics, the Cholesky, the triangular solve and the
+apply product are torch ops.
 """
 
 from __future__ import annotations
@@ -101,14 +102,20 @@ def _inv_lower(l):
 
 def _accumulate(x):
     """The dtype the statistics of x (float32 or float64) are summed in:
-    float64 for float32 on a CUDA card, x's own otherwise. The card's
-    float32 Gram over the pixels (cuBLAS, one chain along them) lies ~20x
-    further from float64 than the CPU's (4.2e-6 against 2.0e-7 of its max
-    at 32 channels and 1024 pixels), and the Cholesky factors and their
-    inverse carry that times the covariance's condition number (~6e3 at
-    the first cWCT of chip_smoke.py's float32-vs-float64 training batch)
-    into the transfer and the training step's gradient
-    (scripts/torch_cwct_f32_card.py)."""
+    float64 for float32 on a CUDA card, x's own otherwise. Used by the
+    global statistics (_stats, row_stats) and the regional moments
+    (region_moments: the masked transfers and the tiler's per-label
+    pass). The card's float32 Gram over the pixels (cuBLAS, one chain
+    along them) lies ~20x further from float64 than the CPU's (4.2e-6
+    against 2.0e-7 of its max at 32 channels and 1024 pixels), and the
+    Cholesky factors and their inverse carry that times the covariance's
+    condition number (~6e3 at the first cWCT of chip_smoke.py's
+    float32-vs-float64 training batch) into the transfer and the training
+    step's gradient (scripts/torch_cwct_f32_card.py). The regional
+    covariances, formed from raw moments as Gram - n mean mean^T, lay up
+    to 1.5e-6 of their max from float64 when summed in float32 on the
+    card (tests/test_torch_cuda.py::
+    test_region_statistics_on_card_match_float64)."""
     if x.dtype == torch.float32 and x.device.type == "cuda":
         return torch.float64
     return x.dtype
@@ -368,17 +375,18 @@ def interpolation(content_feat, style_feats, alpha_s, alpha_c=0.0,
 # rows here: x (N, C) with a label per row. K is the region capacity: the
 # label list is the sorted distinct labels padded with -1 to K. The JAX
 # package scans (chunk, K, C) one-hot products; here the same sums are one
-# batched matmul per chunk of pixels, (K*C, chunk) @ (chunk, C), in float32
-# with TF32 off. A bf16 latent holds bf16 values, its one-hot products are
-# exact, and the float32 accumulation is the one the JAX package asks of
-# its bf16 contraction, so bf16 moments equal float32 moments of the same
+# batched matmul per chunk of pixels, (K*C, chunk) @ (chunk, C), with TF32
+# off, in _accumulate's dtype: float32 on the CPU (the JAX package's), float64
+# on a CUDA card. A bf16 latent holds bf16 values and its one-hot products
+# are exact in either, so bf16 moments equal float32 moments of the same
 # values up to the order of the sums.
 
 MIN_PIXELS = 10
 MAX_RATIO_RESEARCH = 100.0
 LABEL_BUCKETS = (8, 16, 32, 64, 150)
-# pixels per matmul of the moments and the apply: bounds the (chunk, K*C)
-# float32 intermediate (128 MiB at K = C = 32)
+# pixels per matmul of the apply and of float32 moments: bounds the
+# (chunk, K*C) intermediate to 128 MiB at K = C = 32 (region_moments scales
+# it down for a wider dtype, keeping the bytes)
 REGION_CHUNK = 32768
 
 
@@ -408,24 +416,32 @@ def _chunks(n: int, chunk: int):
     return [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
 
 
-def region_moments(x, m, labels, chunk: int = REGION_CHUNK):
+def region_moments(x, m, labels, chunk=None):
     """Per-label raw moments of x (..., N, C) under labels m (..., N):
-    counts (K,), sums (K, C), gram (K, C, C), float32, summed over every
-    row. Raw moments, not means and covariances, so that a caller can add
-    them up over several passes (the tiler's tiles, models/ultra.py) before
+    counts (K,), sums (K, C), gram (K, C, C), summed over every row in
+    _accumulate of x in at least float32 (float32 for a float32 or bf16 x
+    on the CPU, float64 on a CUDA card or for a float64 x) and returned in
+    that dtype: stats_from_moments rounds the statistics once. Raw moments,
+    not means and covariances, so that a caller can add them up over
+    several passes (the tiler's tiles, models/ultra.py) before
     stats_from_moments. Leading dims are rows too: a batch of tiles gives
-    the sum of the JAX package's batched=True moments over its tiles."""
+    the sum of the JAX package's batched=True moments over its tiles.
+    chunk: rows per matmul; by default REGION_CHUNK float32 rows' bytes
+    (32768 rows in float32, 16384 in float64)."""
     c = x.shape[-1]
     x, m = x.reshape(-1, c), m.reshape(-1)
     n = x.shape[0]
     k = labels.shape[0]
-    cnt = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    sm = torch.zeros((k, c), dtype=torch.float32, device=x.device)
-    gm = torch.zeros((k * c, c), dtype=torch.float32, device=x.device)
+    acc = _accumulate(at_least_f32(x[:0]))    # dtype and device only
+    if chunk is None:
+        chunk = REGION_CHUNK * 4 // acc.itemsize
+    cnt = torch.zeros((k,), dtype=acc, device=x.device)
+    sm = torch.zeros((k, c), dtype=acc, device=x.device)
+    gm = torch.zeros((k * c, c), dtype=acc, device=x.device)
     with true_f32_matmul():
         for lo, hi in _chunks(n, chunk):
-            xf = x[lo:hi].float()
-            w = (m[lo:hi, None] == labels[None, :]).float()      # (n, K)
+            xf = x[lo:hi].to(acc)
+            w = (m[lo:hi, None] == labels[None, :]).to(acc)      # (n, K)
             cnt += w.sum(dim=0)
             sm += w.t() @ xf
             xw = (w[:, :, None] * xf[:, None, :]).reshape(hi - lo, k * c)
@@ -433,18 +449,26 @@ def region_moments(x, m, labels, chunk: int = REGION_CHUNK):
     return cnt, sm, gm.reshape(k, c, c)
 
 
-def stats_from_moments(cnt, sm, gm):
+def stats_from_moments(cnt, sm, gm, dtype=None):
     """(counts, sums, gram) -> (counts, means, covariances) with /(n - 1)
-    and the divisors clamped for empty regions. Any leading batch dims."""
+    and the divisors clamped for empty regions, formed in the moments'
+    dtype (the subtraction Gram - n mean mean^T cancels digits) and
+    rounded once to `dtype` when it is given. Any leading batch dims."""
     means = sm / cnt.clamp(min=1.0)[..., None]
     covs = (gm - cnt[..., None, None] * means[..., :, None]
             * means[..., None, :]) / (cnt.clamp(min=2.0) - 1.0)[..., None,
                                                                  None]
-    return cnt, means, covs
+    if dtype is None:
+        return cnt, means, covs
+    return cnt.to(dtype), means.to(dtype), covs.to(dtype)
 
 
 def _region_stats(x, m, labels):
-    return stats_from_moments(*region_moments(x, m, labels))
+    """Per-label (counts, means, covariances) of x (N, C) in float32
+    (float64 for a float64 x), summed in region_moments' dtype and rounded
+    once."""
+    return stats_from_moments(*region_moments(x, m, labels),
+                              dtype=at_least_f32(x[:0]).dtype)
 
 
 def region_transforms(labels, nc, mean_c, cov_c, ns, mean_s, cov_s,

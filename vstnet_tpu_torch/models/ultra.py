@@ -330,11 +330,12 @@ def stylize_tiled_masked(net, content, style, cmask, smask,
 
     Pass 1 sums per-label latent moments over the tiles' owned pixels, so
     the per-label transforms come from the same statistics as a
-    whole-image masked transfer; pass 2 applies each region's transform
-    tile by tile, with the raised-cosine blend. cmask (1, H, W) int labels
-    at content resolution, smask (1, Hs, Ws) at the style's. A content
-    mask with more distinct labels than max_labels raises ValueError (size
-    it with cwct.label_capacity)."""
+    whole-image masked transfer (summed in cwct.region_moments' dtype,
+    float64 on a card, and rounded to float32 once); pass 2 applies each
+    region's transform tile by tile, with the raised-cosine blend. cmask
+    (1, H, W) int labels at content resolution, smask (1, Hs, Ws) at the
+    style's. A content mask with more distinct labels than max_labels
+    raises ValueError (size it with cwct.label_capacity)."""
     _, h, w, _ = content.shape
     g = _TileGrid(h, w, cfg, tile, overlap)
     weights, fast = _pick_weights(net, fast_params)
@@ -356,18 +357,17 @@ def stylize_tiled_masked(net, content, style, cmask, smask,
 
     z_s = _enc(weights, style, cfg, fast)[0]
     sm_lat = resize_nearest(smask, z_s.shape[0], z_s.shape[1])[0]
-    ns, mean_s, cov_s = cwct.stats_from_moments(*cwct.region_moments(
-        z_s, sm_lat.to(torch.int32), labels))
+    style_moments = cwct.region_moments(z_s, sm_lat.to(torch.int32), labels)
+    ns, mean_s, cov_s = cwct.stats_from_moments(*style_moments,
+                                                dtype=torch.float32)
 
-    k, c = labels.shape[0], cfg.latent_channels
-    acc = (torch.zeros((k,), dtype=torch.float32, device=dev),
-           torch.zeros((k, c), dtype=torch.float32, device=dev),
-           torch.zeros((k, c, c), dtype=torch.float32, device=dev))
+    # the tile batches' moments add up in the style moments' dtype
+    acc = tuple(torch.zeros_like(a) for a in style_moments)
     for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", dev):
         acc = _moments_chunk_masked(weights, content, y0s, x0s, acc, owns,
                                     cm_lat, labels, cfg, g.th, g.tw, sc,
                                     fast)
-    nc, mean_c, cov_c = cwct.stats_from_moments(*acc)
+    nc, mean_c, cov_c = cwct.stats_from_moments(*acc, dtype=torch.float32)
     ts, bs, valids = cwct.region_transforms(
         labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
         float(min_pixels), max_ratio)
