@@ -112,7 +112,9 @@ order; any failure raises and the process exits non-zero:
               fused route on the same grid against it (>= 40 dB), the
               regional pass 1's statistics and transform (fused, synthetic
               label maps) against float64 of the owned latent rows (5e-7,
-              2e-5, as phase 6), the
+              2e-5, as phase 6), the global pass 1's likewise on the fused
+              route (one untimed ultra._content_stats call) and on the
+              float32 route (the default-overlap call), the
               default overlap 128 against the whole image (printed); then
               the image CLI on the 4K PNG in --fast global, --auto_seg,
               --styles A B --alpha_s 0.3 0.7, --alpha_c 0.5 and their
@@ -165,7 +167,9 @@ order; any failure raises and the process exits non-zero:
               functions: <= 1e-4, masks equal on >= 99 % of the decided
               pixels; export and load seconds, each artifact's MB and one
               call's measured memory, and what TF32 would cost the stylize
-              artifact.
+              artifact; the stylize program at one block a stage traced on
+              the CPU and run on the card against the one traced on the
+              card (within 1e-6 of its max, beside float64).
  12. parallel (after phase 11) the data-parallel layer over every card, or
               over two replicas on cuda:0 where the host has one card (a
               line then says that NCCL between cards was not exercised):
@@ -1555,22 +1559,32 @@ def _rel(a, ref):
     return float((a.double() - ref).abs().max() / ref.abs().max())
 
 
+def stats_f64(x):
+    """(mean, covariance with /(n-1)) of the rows of x (N, C) in float64
+    from its float64 copy: the mean, then the centred Gram."""
+    x = x.double()
+    mean = x.mean(dim=0)
+    xc = x - mean
+    return mean, xc.t() @ xc / max(x.shape[0] - 1, 1)
+
+
+def transform_f64(mc, cc, ms, cs):
+    """(T, b) of the cWCT in float64 from float64 content statistics (mc,
+    cc) and style statistics (ms, cs): T = Ls Lc^{-1} (Cholesky factors),
+    b = mu_s - T mu_c."""
+    lc = torch.linalg.cholesky(cc)
+    t = torch.linalg.cholesky(cs) @ torch.linalg.solve_triangular(
+        lc, torch.eye(lc.shape[0], dtype=lc.dtype, device=lc.device),
+        upper=False)
+    return t, ms - t @ mc
+
+
 def region_f64(x, m, labels):
     """{label: (count, mean, covariance with /(n-1))} of the rows of x
     (N, C) under labels m (N,), for each real label of `labels`, in
-    float64 from the float64 copy of x: the label's rows picked by a
-    boolean mask, their mean, their centred Gram."""
-    x = x.double()
-    out = {}
-    for lab in labels.tolist():
-        if lab < 0:
-            continue
-        rows = x[m == lab]
-        mean = rows.mean(dim=0)
-        xc = rows - mean
-        out[lab] = (rows.shape[0], mean,
-                    xc.t() @ xc / max(rows.shape[0] - 1, 1))
-    return out
+    float64 (stats_f64 of the label's rows, picked by a boolean mask)."""
+    return {lab: (int((m == lab).sum()), *stats_f64(x[m == lab]))
+            for lab in labels.tolist() if lab >= 0}
 
 
 def _valid_f64(nc, ns):
@@ -1592,13 +1606,9 @@ def region_transfer_f64(x, m, sc, ss):
     for lab, (nc, mc, cc) in sc.items():
         if lab not in ss or not _valid_f64(nc, ss[lab][0]):
             continue
-        ns, ms, cs = ss[lab]
-        lc = torch.linalg.cholesky(cc)
-        t = torch.linalg.cholesky(cs) @ torch.linalg.solve_triangular(
-            lc, torch.eye(lc.shape[0], dtype=lc.dtype, device=lc.device),
-            upper=False)
+        t, b = transform_f64(mc, cc, *ss[lab][1:])
         sel = m == lab
-        y[sel] = x[sel] @ t.t() + (ms - t @ mc)
+        y[sel] = x[sel] @ t.t() + b
     return y
 
 
@@ -1721,6 +1731,72 @@ def tiler_region_distances(model, content, style, cmask, smask):
                 _cov_worst(probe.stats[-1], sc, ss, labels))
     got = cwct.apply_regions(xc, mc, labels, *probe.tsb)
     return worst, _rel(got, region_transfer_f64(xc, mc, sc, ss)), probe
+
+
+# ---------------------------------------------------------------------------
+# The global tiler's streamed statistics against float64 (phase 8;
+# tests/test_torch_cuda.py::test_tiled_global_statistics_on_card_match_float64)
+# ---------------------------------------------------------------------------
+
+class _TilerGlobalProbe:
+    """Within the block, pass 1 of the global tiler is recorded: the owned
+    latent rows (N, C) of every tile batch that ultra._moments_chunk sums,
+    taken from the batch's encode, and the (mean_c, cov_c) of every
+    ultra._content_stats call."""
+
+    def __enter__(self):
+        from vstnet_tpu_torch.models import ultra
+
+        self.ultra = ultra
+        self.saved = {n: getattr(ultra, n) for n in (
+            "_enc", "_moments_chunk", "_content_stats")}
+        self.rows, self.stats = [], []
+
+        def chunk(weights, content, y0s, x0s, acc, owns, *args, **kw):
+            def enc(*a, **k):
+                z = self.saved["_enc"](*a, **k)
+                self.rows.append(z.reshape(-1, z.shape[-1])[
+                    owns.reshape(-1) > 0])
+                return z
+            ultra._enc = enc
+            try:
+                return self.saved["_moments_chunk"](
+                    weights, content, y0s, x0s, acc, owns, *args, **kw)
+            finally:
+                ultra._enc = self.saved["_enc"]
+
+        def stats(*args, **kw):
+            self.stats.append(self.saved["_content_stats"](*args, **kw))
+            return self.stats[-1]
+
+        ultra._moments_chunk = chunk
+        ultra._content_stats = stats
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ultra, name, fn)
+
+
+def tiler_global_distances(probe, z_style):
+    """The last (mean_c, cov_c) a _TilerGlobalProbe recorded, against the
+    float64 statistics of the owned rows it recorded: (the covariance's
+    distance of its max, the transfer's distance of the float64
+    transfer's max). The transfer is cwct.transform_from_stats against
+    cwct.style_factors(z_style), as ultra.stylize_tiled makes them,
+    applied to the rows by cwct.apply_transform; the float64 one takes
+    the float64 statistics of the rows and of z_style (1, Hs, Ws, C)."""
+    from vstnet_tpu_torch.models import cwct
+
+    rows = torch.cat(probe.rows)
+    mean_c, cov_c = probe.stats[-1]
+    ls, mu_s = cwct.style_factors(z_style)
+    got = cwct.apply_transform(rows, *cwct.transform_from_stats(
+        mean_c, cov_c, ls[0], mu_s[0]))
+    mc, cc = stats_f64(rows)
+    t, b = transform_f64(mc, cc, *stats_f64(
+        z_style.reshape(-1, z_style.shape[-1])))
+    return _rel(cov_c, cc), _rel(got, rows.double() @ t.t() + b)
 
 
 # ---------------------------------------------------------------------------
@@ -2302,6 +2378,15 @@ def phase_ultra(ops, model, device, gen, total, smi):
           f"(<= {REGION_TRANSFER_GATE})")
     if not (cov <= REGION_COV_GATE and tr <= REGION_TRANSFER_GATE):
         raise AssertionError("ultra regional statistics off float64")
+    # the global pass 1 of the fused route, outside every timed call
+    fp = model.fast_params
+    with _TilerGlobalProbe() as probe:
+        ultra._content_stats(
+            ultra._TileGrid(h, w, cfg, ULTRA_TILE, ULTRA_OVERLAP), fp,
+            content, cfg, True, ultra.TILE_BATCH)
+    global_stats = {"fused": tiler_global_distances(
+        probe, ultra._enc(fp, style, cfg, True))}
+    del probe
 
     with _UltraProbe(ops) as probe:
         ops.reset_launch_counts()
@@ -2321,12 +2406,24 @@ def phase_ultra(ops, model, device, gen, total, smi):
         raise AssertionError(f"ultra fused PSNR {p}")
     del fast, exact
 
-    default = ultra.stylize_tiled(model.net, content, style, cfg,
-                                  tile=ULTRA_TILE, overlap=ULTRA_OVERLAP)
+    with _TilerGlobalProbe() as probe:
+        default = ultra.stylize_tiled(model.net, content, style, cfg,
+                                      tile=ULTRA_TILE, overlap=ULTRA_OVERLAP)
+    global_stats["float32"] = tiler_global_distances(
+        probe, ultra._enc(model.net, style, cfg, False))
+    del probe
     print(f"ultra float32 tiled at the default overlap {ULTRA_OVERLAP} vs "
           f"whole image: PSNR {_psnr(default.clamp(0, 1), whole):.2f} dB "
           f"(not gated: seams blended inside the receptive field)")
     del default, whole
+    for route, (cov, tr) in global_stats.items():
+        print(f"gate ultra global pass 1 ({route} route, overlap "
+              f"{ULTRA_OVERLAP}) vs float64 of the owned latent rows: "
+              f"covariance {cov:.3e} of its max (<= {REGION_COV_GATE}), "
+              f"transfer {tr:.3e} of its max (<= {REGION_TRANSFER_GATE})")
+    if not all(cov <= REGION_COV_GATE and tr <= REGION_TRANSFER_GATE
+               for cov, tr in global_stats.values()):
+        raise AssertionError("ultra global statistics off float64")
 
     tmp = tempfile.TemporaryDirectory(prefix="vstnet_ultra_")
     root = tmp.name
@@ -3137,6 +3234,9 @@ TRACE_KERNELS = {"K1": ("coupling_mma_kernel", "coupling_mma_narrow_kernel"),
 # of the logits' scale
 EXPORT_HW = 512
 EXPORT_TOL = 1e-4
+# a stylize artifact traced on the CPU and run on the card against the one
+# traced on the card, of the latter's max
+EXPORT_OFF_CARD_TOL = 1e-6
 
 
 def _smoke(argv, timeout=600):
@@ -3363,6 +3463,48 @@ def _tools_export(model, seg_net, device, gen, smi, exported):
             raise AssertionError(f"export {name}: {detail}")
 
 
+def _tools_export_off_card(model, device, smi):
+    """The stylize program traced on the CPU, moved to the card by
+    load_exported, against the same program traced on the card, both at
+    PHOTO_CONFIG's widths with one block a stage (so that the CPU trace
+    takes seconds) and EXPORT_HW: within EXPORT_OFF_CARD_TOL of the
+    card-traced output's max; both printed beside the float64 eager
+    stylize of the same inputs and weights. Inputs and weights come from
+    generators of their own, so that later phases draw what they drew."""
+    import dataclasses
+
+    from vstnet_tpu_torch.models.pipeline import stylize
+    from vstnet_tpu_torch.models.revresnet import RevResNet
+    from vstnet_tpu_torch.runtime import export as ex
+
+    cfg = dataclasses.replace(model.cfg, n_blocks=(1, 1, 1))
+    net = RevResNet(cfg, device=device).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    c, s = _frames(gen, 1, EXPORT_HW, device), _frames(gen, 1, EXPORT_HW,
+                                                       device)
+    out, secs = {}, {}
+    for where in ("cpu", "card"):
+        t0 = time.perf_counter()
+        blob, _ = ex.export_stylize(net, cfg, EXPORT_HW, EXPORT_HW,
+                                    device="cpu" if where == "cpu"
+                                    else device, serialized=True)
+        secs[where] = time.perf_counter() - t0
+        out[where] = ex.load_exported(blob, device=device)(c, s)
+    with torch.no_grad():
+        f64 = stylize(net.double(), c.double(), s.double())
+    err = _rel(out["cpu"], out["card"])
+    print(f"gate export stylize {EXPORT_HW}x{EXPORT_HW} (one block a "
+          f"stage) traced on the CPU, run on the card, vs traced on the "
+          f"card: {err:.3e} of its max (<= {EXPORT_OFF_CARD_TOL}), bit "
+          f"equal {torch.equal(out['cpu'], out['card'])}; from float64 "
+          f"eager: CPU-traced {_rel(out['cpu'], f64):.3e}, card-traced "
+          f"{_rel(out['card'], f64):.3e}; export {secs['cpu']:.2f} s on "
+          f"the CPU, {secs['card']:.2f} s on the card [{smi}]")
+    if not err <= EXPORT_OFF_CARD_TOL:
+        raise AssertionError(f"export traced on the CPU: {err}")
+
+
 def phase_tools(ops, model, seg, device, gen, total, smi, exported):
     """Phase 11: GGUF weights, the smoke CLI and the torch.export
     artifacts, one after another; exported: Packages.exported."""
@@ -3375,6 +3517,7 @@ def phase_tools(ops, model, seg, device, gen, total, smi, exported):
         walls = _tools_smoke(tmp, smi)
     t_smoke = time.perf_counter() - t0 - t_gguf
     _tools_export(model, seg.net, device, gen, smi, exported)
+    _tools_export_off_card(model, device, smi)
     wall = time.perf_counter() - t0
     print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, smoke runs "
           f"{t_smoke:.1f}: " + ", ".join(f"{k} {v:.1f}"

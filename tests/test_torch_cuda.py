@@ -845,3 +845,140 @@ def test_region_statistics_on_card_match_float64(dev):
     for what, cov, trs, _, _ in rows:
         assert cov <= REGION_COV_GATE, what
         assert max(trs) <= REGION_TRANSFER_GATE, what
+
+
+def _tiler_global_on_cpu(probe, z_style):
+    """The global tiler's pass 1 replayed on the CPU from a
+    chip_smoke._TilerGlobalProbe's rows: each tile batch's owned rows
+    summed in float32 as models/ultra.py sums a batch on the CPU (the
+    count, the sums, one addmm_ into the Gram), the statistics formed as
+    Gram - n mean mean^T in float32, and the transfer against the CPU's
+    style factors. Returns the same distances as
+    chip_smoke.tiler_global_distances."""
+    from types import SimpleNamespace
+
+    from chip_smoke import tiler_global_distances
+
+    rows = [x.cpu() for x in probe.rows]
+    c = rows[0].shape[-1]
+    n, s1, s2 = torch.zeros(()), torch.zeros(c), torch.zeros(c, c)
+    for x in rows:
+        n += x.shape[0]
+        s1 += x.sum(dim=0)
+        s2.addmm_(x.t(), x)
+    mean = s1 / n
+    cov = (s2 - n * torch.outer(mean, mean)) / (n - 1.0)
+    return tiler_global_distances(
+        SimpleNamespace(rows=rows, stats=[(mean, cov)]), z_style.cpu())
+
+
+def test_tiled_global_statistics_on_card_match_float64(dev):
+    """Pass 1 of the global 4K tiler (ultra._content_stats, as
+    stylize_tiled and stylize_tiled_interp run it) against float64 of the
+    same owned latent rows: PHOTO_CONFIG at full depth (weights from seed
+    0), smooth frames (chip_smoke._frames), 3840x2160 content, 1024x576
+    style, tile 1024, overlap 128, on the fused route (bf16 K1/K2 tile
+    encodes, the latent cast up) and on the float32 standard route. The
+    covariance within 5e-7 of its max and the transfer
+    (transform_from_stats against the style's factors, applied to the
+    rows) within 2e-5 of the float64 transfer's max, the bounds of the
+    global and the regional cWCT. Every distance is printed beside the
+    CPU's float32 one on the same rows (run with -s to see them)."""
+    from chip_smoke import (
+        REGION_COV_GATE,
+        REGION_TRANSFER_GATE,
+        ULTRA_HW,
+        ULTRA_OVERLAP,
+        ULTRA_STYLE,
+        ULTRA_TILE,
+        _frames,
+        _TilerGlobalProbe,
+        tiler_global_distances,
+    )
+    from vstnet_tpu_torch.models import ultra
+    from vstnet_tpu_torch.models.pipeline import StyleModel
+
+    model = StyleModel.random_init(seed=0, device=dev)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(0)
+    content = _frames(gen, 1, ULTRA_HW, dev)
+    style = _frames(gen, 1, ULTRA_STYLE, dev)
+    grid = ultra._TileGrid(*ULTRA_HW, cfg, ULTRA_TILE, ULTRA_OVERLAP)
+    rows = []
+    for route, weights, fast in (("fused", model.fast_params, True),
+                                 ("float32", model.net, False)):
+        with torch.no_grad(), _TilerGlobalProbe() as probe:
+            ultra._content_stats(grid, weights, content, cfg, fast,
+                                 ultra.TILE_BATCH)
+            zs = ultra._enc(weights, style, cfg, fast)
+            card = tiler_global_distances(probe, zs)
+            cpu = _tiler_global_on_cpu(probe, zs)
+        assert len(probe.rows) == len(range(0, len(list(grid.tiles())),
+                                            ultra.TILE_BATCH))
+        rows.append((route, card, cpu))
+        del probe
+    for route, (cov, tr), (cov_cpu, tr_cpu) in rows:
+        print(f"global tiler pass 1, {route} route, 4K on "
+              f"{torch.cuda.get_device_name(0)}: covariance {cov:.3e} (CPU "
+              f"{cov_cpu:.3e}), transfer {tr:.3e} (CPU {tr_cpu:.3e})")
+    for route, (cov, tr), _ in rows:
+        assert cov <= REGION_COV_GATE, route
+        assert tr <= REGION_TRANSFER_GATE, route
+
+
+def _graph_ops(ep):
+    """(target, output dtype) of every call in an exported program."""
+    return [(str(n.target), getattr(n.meta.get("val"), "dtype", None))
+            for n in ep.graph.nodes if n.op == "call_function"]
+
+
+def test_program_exported_off_the_card_matches_the_card_export(
+        dev, monkeypatch):
+    """The full-depth stylize program (PHOTO_CONFIG, weights from seed 0,
+    512x512 B=1 float32: phase 13's and the export CLI's shape) traced on
+    the CPU and moved to the card by load_exported, against the same
+    program traced on the card: within 1e-6 of the card-traced output's
+    max, since both sum the cWCT statistics in float64 (cwct._accumulate
+    takes float64 for a float32 latent while torch.export traces, as on
+    the card). Printed beside it: whether the two are bit-equal, and each
+    one's distance from the float64 eager stylize of the same inputs. The
+    card-traced graph is the one the card's device rule alone gives: the
+    export rule changes no program traced on the card."""
+    import copy
+    import io
+
+    from chip_smoke import _frames, _rel
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.models.pipeline import StyleModel, stylize
+    from vstnet_tpu_torch.runtime import export as ex
+
+    model = StyleModel.random_init(seed=0, device=dev)
+    net, cfg, hw = model.net, model.cfg, 512
+    gen = torch.Generator().manual_seed(0)
+    c, s = _frames(gen, 1, hw, dev), _frames(gen, 1, hw, dev)
+    eps = {where: ex.export_stylize(net, cfg, hw, hw, device=where)[0]
+           for where in ("cpu", dev)}
+    out = {}
+    for where, ep in eps.items():
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        out[str(where)] = ex.load_exported(buf.getvalue(), device=dev)(c, s)
+    with torch.no_grad():
+        f64 = stylize(copy.deepcopy(net).double(), c.double(), s.double())
+    got, want = out["cpu"], out[str(dev)]
+    err = _rel(got, want)
+    cpu_f64 = any(d == torch.float64 for _, d in _graph_ops(eps["cpu"]))
+    print(f"stylize {hw}x{hw} traced on the CPU, run on "
+          f"{torch.cuda.get_device_name(0)}: {err:.3e} of the card-traced "
+          f"output's max, bit equal {torch.equal(got, want)}; from float64 "
+          f"eager: CPU-traced {_rel(got, f64):.3e}, card-traced "
+          f"{_rel(want, f64):.3e}; the CPU-traced graph holds float64: "
+          f"{cpu_f64}")
+    assert got.shape == want.shape == (1, hw, hw, 3)
+    assert err <= 1e-6
+
+    monkeypatch.setattr(cwct, "_accumulate", lambda x: (
+        torch.float64 if x.dtype == torch.float32
+        and x.device.type == "cuda" else x.dtype))
+    card_rule = ex.export_stylize(net, cfg, hw, hw, device=dev)[0]
+    assert _graph_ops(card_rule) == _graph_ops(eps[dev])

@@ -8,7 +8,9 @@ back with load_exported and run on numpy-seeded inputs:
     block a stage, weights from vstnet_tpu's init_revresnet): within 1e-4
     of vstnet_tpu's encode / decode / cwct.transfer (float32 roundoff
     through the network and the 32x32 Cholesky), and equal to the port's
-    eager functions bit for bit (the same operators on the same CPU);
+    eager functions bit for bit (the same operators on the same CPU; the
+    stylize program sums its cWCT statistics in float64, cwct._accumulate's
+    export rule, so it is held to the eager stylize under that rule);
   * the segmenter at the smallest depth SegFormer takes (one block a
     stage): masks equal to vstnet_tpu's segment_mask (on these seeded
     weights and inputs the best class leads its runner-up by at least
@@ -36,7 +38,7 @@ from vstnet_tpu_torch.io.checkpoint import (
     params_from_jax,
     segformer_params_from_jax,
 )
-from vstnet_tpu_torch.models import remapping
+from vstnet_tpu_torch.models import cwct, remapping
 from vstnet_tpu_torch.models import segformer as sf
 from vstnet_tpu_torch.models.pipeline import stylize
 from vstnet_tpu_torch.models.revresnet import RevResNet
@@ -104,8 +106,15 @@ def test_encoder_and_decoder_artifacts(rev, rng):
     np.testing.assert_array_equal(got, net.decode(torch.from_numpy(z)))
 
 
+def _float64_sums(monkeypatch):
+    """cwct._accumulate's rule while torch.export traces (float64 for a
+    float32 latent), applied to eager CPU code."""
+    monkeypatch.setattr(cwct, "_accumulate", lambda x: (
+        torch.float64 if x.dtype == torch.float32 else x.dtype))
+
+
 @pytest.mark.parametrize("bake", [True, False])
-def test_stylize_artifact(rev, rng, bake):
+def test_stylize_artifact(rev, rng, bake, monkeypatch):
     import io
 
     params, net = rev
@@ -133,7 +142,47 @@ def test_stylize_artifact(rev, rng, bake):
         assert tuple(got.shape) == oshape
         np.testing.assert_allclose(got.numpy(), np.asarray(_jstylize(p, c, s)),
                                    rtol=1e-4, atol=1e-4)
-        np.testing.assert_array_equal(got, stylize(n, tc, ts))
+        with monkeypatch.context() as m:
+            _float64_sums(m)
+            np.testing.assert_array_equal(got, stylize(n, tc, ts))
+
+
+def _float32_stats(x):
+    """cwct._stats' float32 arithmetic on the CPU, spelled out: the mean
+    over the pixels, the centred Gram / (n - 1) by bmm."""
+    b, g, c, n = x.shape
+    mean = x.mean(dim=(1, 3))
+    xc = (x - mean[:, None, :, None]).transpose(1, 2).reshape(b, c, g * n)
+    return mean, torch.bmm(xc, xc.transpose(1, 2)) / (g * n - 1)
+
+
+def test_exported_statistics_are_summed_in_float64(rev, rng):
+    """cwct._accumulate's export rule: a stylize program traced on the CPU
+    casts each latent (content and style) to float64 before its mean and
+    its Gram, as one traced on the card does, so that it computes what the
+    card's eager program computes once load_exported or
+    native.package_program moves it to the card. Eager _stats on the CPU
+    keeps its float32 sums, bit for bit."""
+    _, net = rev
+    ep, _ = ex.export_stylize(net, SMALL, 16, 16, device="cpu")
+
+    def dtype(a):
+        return getattr(a.meta.get("val"), "dtype", None)
+
+    calls = [n for n in ep.graph.nodes if n.op == "call_function"]
+    casts = [n for n in calls if dtype(n) == torch.float64
+             and dtype(n.args[0]) == torch.float32]
+    sums = [n for n in calls if n.target in (torch.ops.aten.mean.dim,
+                                             torch.ops.aten.bmm.default)]
+    assert len(casts) == 2 and len(sums) == 4
+    for n in sums:
+        assert dtype(n) == torch.float64
+        assert all(dtype(a) == torch.float64 for a in n.args
+                   if isinstance(a, torch.fx.Node))
+    x = torch.from_numpy(rng.standard_normal((2, 1, 32, 64)).astype(
+        np.float32) * np.float32(0.5) + np.float32(0.3))
+    for got, want in zip(cwct._stats(x), _float32_stats(x)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_segmenter_artifact(seg, rng):

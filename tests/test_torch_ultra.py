@@ -218,3 +218,71 @@ def test_tiled_masked_label_overflow_raises(world):
     with pytest.raises(ValueError, match="distinct labels"):
         ultra.stylize_tiled_masked(world["net"], c, c, cm, sm, TINY,
                                    tile=64, overlap=0, max_labels=4)
+
+
+def _float32_content_stats(batches):
+    """Pass 1's statistics in float32, as the JAX package forms them and
+    the port does on the CPU, spelled out: per tile batch (z (T, h, w, C),
+    owns (T, h, w)), zm = z * owns, n += sum(owns), s1 += sum(zm),
+    s2 += zm^T z (one addmm_); then mean = s1 / n and cov = (s2 - n
+    mean mean^T) / (n - 1)."""
+    c = batches[0][0].shape[-1]
+    n, s1, s2 = torch.zeros(()), torch.zeros(c), torch.zeros(c, c)
+    for z, owns in batches:
+        zm = (z * owns[..., None]).reshape(-1, c)
+        n += owns.sum()
+        s1 += zm.sum(dim=0)
+        s2.addmm_(zm.t(), z.reshape(-1, c))
+    mean = s1 / n
+    return mean, (s2 - n * torch.outer(mean, mean)) / (n - 1.0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_content_stats_follow_the_accumulate_rule(world, monkeypatch, fast):
+    """ultra._content_stats (pass 1 of stylize_tiled and
+    stylize_tiled_interp) at the practical regime (9 tiles in 3 batches,
+    the tail padded), each batch's latent recorded. With the CPU's own
+    cwct._accumulate rule the statistics equal _float32_content_stats of
+    the same latents bit for bit; with the card's rule applied here
+    (float64 for a float32 latent, summed one tile at a time), the
+    float64 mean and centred Gram / (n - 1) of the same owned rows,
+    rounded once to float32, bit for bit. The two differ."""
+    from vstnet_tpu_torch.models import cwct
+
+    net = world["net"]
+    weights = rf.pack_revresnet(net, torch.bfloat16) if fast else net
+    content = torch.from_numpy(world["content"])
+    g = ultra._TileGrid(H, W, TINY, *OVERLAPS["practical"])
+    owns = [o for _, _, o, _ in g.chunks(ultra.TILE_BATCH, "own")]
+    assert len(owns) == 3 and not bool(owns[-1][-1].any())
+    enc = ultra._enc
+
+    def run():
+        latents = []
+
+        def record(*args, **kw):
+            latents.append(enc(*args, **kw))
+            return latents[-1]
+
+        monkeypatch.setattr(ultra, "_enc", record)
+        got = ultra._content_stats(g, weights, content, TINY, fast,
+                                   ultra.TILE_BATCH)
+        monkeypatch.setattr(ultra, "_enc", enc)
+        return got, list(zip(latents, owns, strict=True))
+
+    plain, batches = run()
+    for g_, w in zip(plain, _float32_content_stats(batches)):
+        assert g_.dtype == torch.float32 and torch.equal(g_, w)
+
+    monkeypatch.setattr(cwct, "_accumulate", lambda x: (
+        torch.float64 if x.dtype == torch.float32 else x.dtype))
+    got, batches = run()
+    rows = torch.cat([z.reshape(-1, z.shape[-1])[o.reshape(-1) > 0]
+                      for z, o in batches]).double()
+    assert rows.shape[0] == H * W // TINY.latent_scale ** 2
+    mean = rows.mean(dim=0)
+    xc = rows - mean
+    for g_, w, p in zip(got, (mean, xc.t() @ xc / (rows.shape[0] - 1)),
+                        plain):
+        assert g_.dtype == torch.float32 and torch.equal(g_, w.float())
+        assert not torch.equal(g_, p)

@@ -15,10 +15,10 @@ free reshape to it, and an NHWC latent (B, H, W, C) is its G = 1 case.
 Precision: statistics, Cholesky factors and transforms are float32 with
 TF32 off, even when the latent is bf16 (float64 on a float64 latent, for
 reference runs: ops.at_least_f32); the statistics are summed in float64
-on a CUDA card and rounded once (_accumulate); the apply sums in float32
-and rounds once to the latent's dtype. There is no hand-written kernel
-here: the 32x32 statistics, the Cholesky, the triangular solve and the
-apply product are torch ops.
+on a CUDA card and in an exported program, and rounded once
+(_accumulate); the apply sums in float32 and rounds once to the latent's
+dtype. There is no hand-written kernel here: the 32x32 statistics, the
+Cholesky, the triangular solve and the apply product are torch ops.
 """
 
 from __future__ import annotations
@@ -102,10 +102,16 @@ def _inv_lower(l):
 
 def _accumulate(x):
     """The dtype the statistics of x (float32 or float64) are summed in:
-    float64 for float32 on a CUDA card, x's own otherwise. Used by the
-    global statistics (_stats, row_stats) and the regional moments
-    (region_moments: the masked transfers and the tiler's per-label
-    pass). The card's float32 Gram over the pixels (cuBLAS, one chain
+    float64 for float32 on a CUDA card or while torch.export traces, x's
+    own otherwise. Used by the global statistics (_stats, row_stats), the
+    regional moments (region_moments: the masked transfers and the tiler's
+    per-label pass) and the global tiler's pass 1 (models/ultra.py). The
+    export rule: the device test is a Python branch that torch.export
+    fixes when it traces, and a program traced on the CPU runs on the card
+    once load_exported or native.package_program moves it there, so an
+    exported program sums in float64 wherever it was traced (a program
+    traced and run on the CPU sums in float64 too; eager CPU code keeps
+    float32). The card's float32 Gram over the pixels (cuBLAS, one chain
     along them) lies ~20x further from float64 than the CPU's (4.2e-6
     against 2.0e-7 of its max at 32 channels and 1024 pixels), and the
     Cholesky factors and their inverse carry that times the covariance's
@@ -116,7 +122,8 @@ def _accumulate(x):
     to 1.5e-6 of their max from float64 when summed in float32 on the
     card (tests/test_torch_cuda.py::
     test_region_statistics_on_card_match_float64)."""
-    if x.dtype == torch.float32 and x.device.type == "cuda":
+    if x.dtype == torch.float32 and (x.device.type == "cuda"
+                                     or torch.compiler.is_exporting()):
         return torch.float64
     return x.dtype
 
@@ -377,9 +384,9 @@ def interpolation(content_feat, style_feats, alpha_s, alpha_c=0.0,
 # package scans (chunk, K, C) one-hot products; here the same sums are one
 # batched matmul per chunk of pixels, (K*C, chunk) @ (chunk, C), with TF32
 # off, in _accumulate's dtype: float32 on the CPU (the JAX package's), float64
-# on a CUDA card. A bf16 latent holds bf16 values and its one-hot products
-# are exact in either, so bf16 moments equal float32 moments of the same
-# values up to the order of the sums.
+# on a CUDA card and in an exported program. A bf16 latent holds bf16 values
+# and its one-hot products are exact in either, so bf16 moments equal float32
+# moments of the same values up to the order of the sums.
 
 MIN_PIXELS = 10
 MAX_RATIO_RESEARCH = 100.0

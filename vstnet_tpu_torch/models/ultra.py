@@ -8,9 +8,12 @@ and the kernels' shapes stay those of one tile batch, in three steps:
      and reduced to (Ls, mu_s) by cwct.style_factors;
   2. content statistics, streamed: each tile batch is encoded and the
      latent moments of the pixels each tile owns (every latent pixel is
-     owned by exactly one tile) are added to float32 accumulators; the
-     sums equal the whole image's wherever an owned pixel lies a receptive
-     field inside its tile (the network is fully convolutional);
+     owned by exactly one tile) are added to accumulators in
+     cwct._accumulate's dtype (float64 on a card; float32 on the CPU, as
+     the JAX package sums them), and the statistics are rounded to
+     float32 once; the sums equal the whole image's wherever an owned
+     pixel lies a receptive field inside its tile (the network is fully
+     convolutional);
   3. transform, decode and a raised-cosine blend of each tile into (H, W)
      float32 canvases.
 
@@ -32,7 +35,16 @@ StyleModel.fast_params) routes the tiles through encode_fast/decode_fast
 in the packed dtype; without it the tiles take the float32 standard path
 (RevResNet.encode/decode). The latent is float32 for the statistics
 either way, and is cast back to the packed dtype before decode_fast. The
-statistics' matmuls run with TF32 off (cwct.true_f32_matmul). The float32
+statistics' matmuls run with TF32 off (cwct.true_f32_matmul) and sum in
+cwct._accumulate's dtype: float64 on a card, for the global pass 1
+(_moments_chunk, _content_stats) and the regional one
+(cwct.region_moments). Summed in float32 there (cuBLAS over a tile
+batch's 4 M latent rows, then the cancelling Gram - n mean mean^T), the
+global covariance of a 3840x2160 content lies 2.1e-6 (float32 route) and
+1.4e-5 (fused route) of its max from float64 of the same rows, against a
+bound of 5e-7; summed in float64, 2.8e-8 and 3.0e-8
+(tests/test_torch_cuda.py::
+test_tiled_global_statistics_on_card_match_float64). The float32
 route's convs run through cuDNN on a card, which uses TF32 unless
 `torch.backends.cudnn.allow_tf32` is False: the CLIs clear it for their
 process, a library caller who wants true float32 clears it too.
@@ -118,16 +130,24 @@ def _moments_chunk(weights, content, y0s, x0s, acc, owns,
                    cfg: RevResNetConfig, th: int, tw: int,
                    fast: bool = False):
     """One tile batch of pass 1: encode, then add the owned pixels' latent
-    moments to acc = (n, s1 (C,), s2 (C, C)) in place. owns (T, h_lat,
-    w_lat) float32 in {0, 1}; all-zero rows pad the tail batch."""
+    moments to acc = (n, s1 (C,), s2 (C, C)) in place, in acc's dtype.
+    owns (T, h_lat, w_lat) float32 in {0, 1}; all-zero rows pad the tail
+    batch. Where acc is wider than the latent (float64 on a card), the
+    latent goes to it one tile at a time, so that its wider copies hold
+    one tile's rows and not the batch's; otherwise the batch is one
+    product, as the JAX package sums it."""
     z = _enc(weights, _slice_tiles(content, y0s, x0s, th, tw), cfg, fast)
     c = z.shape[-1]
-    zm = (z * owns[..., None]).reshape(-1, c)
     n, s1, s2 = acc
+    step = z.shape[0] if s2.dtype == z.dtype else 1
     with cwct.true_f32_matmul():
-        n += owns.sum()
-        s1 += zm.sum(dim=0)
-        s2.addmm_(zm.t(), z.reshape(-1, c))
+        for i in range(0, z.shape[0], step):
+            zi = z[i:i + step].reshape(-1, c).to(s2.dtype)
+            own = owns[i:i + step].reshape(-1, 1).to(s2.dtype)
+            zm = zi * own
+            n += own.sum()
+            s1 += zm.sum(dim=0)
+            s2.addmm_(zm.t(), zi)
     return acc
 
 
@@ -264,14 +284,19 @@ def _pick_weights(net, fast_params):
 
 
 def _zero_moments(c: int, device):
-    return (torch.zeros((), dtype=torch.float32, device=device),
-            torch.zeros((c,), dtype=torch.float32, device=device),
-            torch.zeros((c, c), dtype=torch.float32, device=device))
+    """Pass 1's accumulators (n, s1 (C,), s2 (C, C)) in the dtype that a
+    float32 latent's statistics are summed in on `device`
+    (cwct._accumulate: float64 on a card, float32 on the CPU)."""
+    dt = cwct._accumulate(torch.empty(0, device=device))
+    return tuple(torch.zeros(shape, dtype=dt, device=device)
+                 for shape in ((), (c,), (c, c)))
 
 
 def _content_stats(g, weights, content, cfg, fast, tile_batch):
-    """Pass 1 of the global modes: (mean_c, cov_c) of the whole image's
-    latent from the tiles' owned pixels."""
+    """Pass 1 of the global modes: (mean_c, cov_c) float32 of the whole
+    image's latent from the tiles' owned pixels, summed and formed (Gram
+    - n mean mean^T, which cancels digits) in _zero_moments' dtype and
+    rounded once."""
     acc = _zero_moments(cfg.latent_channels, content.device)
     for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", content.device):
         acc = _moments_chunk(weights, content, y0s, x0s, acc, owns, cfg,
@@ -279,7 +304,7 @@ def _content_stats(g, weights, content, cfg, fast, tile_batch):
     n, s1, s2 = acc
     mean_c = s1 / n
     cov_c = (s2 - n * torch.outer(mean_c, mean_c)) / (n - 1.0)
-    return mean_c, cov_c
+    return mean_c.float(), cov_c.float()
 
 
 def _canvases(h, w, device):
@@ -307,7 +332,9 @@ def stylize_tiled(net, content, style, cfg: RevResNetConfig,
     and W multiples of cfg.down_scale); style (1, Hs, Ws, 3), encoded
     whole. Returns the raw decoder output (1, H, W, 3) float32 on the
     device (the caller clamps). fast_params routes the tiles through the
-    fused kernel path (statistics stay float32)."""
+    fused kernel path. The content statistics are summed over the tiles
+    in cwct._accumulate's dtype (float64 on a card, float32 on the CPU)
+    and rounded to float32 once; the latent is float32 on either route."""
     _, h, w, _ = content.shape
     g = _TileGrid(h, w, cfg, tile, overlap)
     weights, fast = _pick_weights(net, fast_params)

@@ -13,6 +13,16 @@ so the artifacts hold only PyTorch operators.
 traced with its weights and example inputs on that device (None: the CUDA
 card, device.resolve_device). `serialized=True` returns the bytes of
 torch.export.save (a `.pt2` file); False returns the ExportedProgram.
+Unlike a JAX artifact, a program is not bound to the device it was traced
+on: load_exported and native.package_program move it. Its cWCT statistics
+do not depend on that device either: they are summed in float64 in every
+exported program (cwct._accumulate's export rule), as the card's eager
+code sums them, so a program traced on the CPU and run on the card
+computes what one traced on the card computes (the stylize program at
+512x512: tests/test_torch_cuda.py::
+test_program_exported_off_the_card_matches_the_card_export). Run on the
+CPU, such a program sums in float64 where the eager CPU code sums in
+float32.
 
 An ExportedProgram does not carry torch.backends flags, and on a card
 cuDNN's convs default to TF32 (the stylize artifact at 512x512 then lies
