@@ -103,7 +103,10 @@ order; any failure raises and the process exits non-zero:
               the card's name and power limit. The image CLI on a 1024x768
               content in --fast and float32 (global, --auto_seg, --styles
               A B --alpha_s 0.3 0.7), each --fast output >= 40 dB against
-              float32 (auto-seg: on the --fast run's saved masks); then
+              float32 (auto-seg: on the --fast run's saved masks), and in
+              --fast on phase 4's weights written as a .pt and as the JAX
+              package's native .msgpack (save_native(params_to_jax(...))),
+              the two PNGs equal byte for byte; then
               photo_pipeline(fast=True) against photo_pipeline().
   8. ultra    (after phase 7) the tiled path on a smooth 3840x2160 content
               with a 1024x576 style: ultra.stylize_tiled in float32 at the
@@ -142,7 +145,9 @@ order; any failure raises and the process exits non-zero:
               StyleModel, the sample grids and index.html. loss_and_grads at
               128x128 B=2 with every term on, float32 against float64 on the
               card and bf16 against float32 (gates printed beside the
-              numbers); a step resumed from last.pt equal to the
+              numbers); a step resumed from last.pt and its
+              .opt.msgpack (the JAX trainer's flat layout, and the same
+              mid-run state in the JAX tree layout) equal to the
               uninterrupted one. Steps/s (CUDA events, 10 steps after 3),
               peak memory and the device's idle share of one step
               (torch.profiler) at 256x256 B=2 in both phases, float32 and
@@ -169,7 +174,10 @@ order; any failure raises and the process exits non-zero:
               call's measured memory, and what TF32 would cost the stylize
               artifact; the stylize program at one block a stage traced on
               the CPU and run on the card against the one traced on the
-              card (within 1e-6 of its max, beside float64).
+              card (within 1e-6 of its max, beside float64). The
+              invertible 1x1 conv (ops/invconv.py) at 64 channels on a
+              512x512 batch of 4 in float32: inverse(forward(x)) within
+              INVCONV_TOL of x, forward within it of float64, its ms.
  12. parallel (after phase 11) the data-parallel layer over every card, or
               over two replicas on cuda:0 where the host has one card (a
               line then says that NCCL between cards was not exercised):
@@ -2023,11 +2031,12 @@ def _cli_breakdown(root, clip, frames, calls):
     print("video CLI 1280x720 breakdown: " + "; ".join(parts))
 
 
-def phase_cli(ops, device, gen, total, smi):
+def phase_cli(ops, model, device, gen, total, smi):
     """The video CLI at 1280x720 in its four routes and at 640x360, and the
     image CLI at 1024x768 in its --fast and float32 routes, with random
-    weights from their default seed; then photo_pipeline, fused against
-    float32."""
+    weights from their default seed, and in --fast on phase 4's weights
+    (`model`) as a .pt and as the JAX package's native .msgpack; then
+    photo_pipeline, fused against float32."""
     import os
     import re
     import tempfile
@@ -2147,6 +2156,33 @@ def phase_cli(ops, device, gen, total, smi):
                        ("fast styles", ("--fast",) + styles),
                        ("f32 styles", styles)):
         img[tag] = image(tag, *flags)
+    # phase 4's weights as a reference .pt and as the JAX package's
+    # native .msgpack (written by the port, read with no flax): the same
+    # --fast program, so the same PNG byte for byte
+    from vstnet_tpu_torch.io.checkpoint import (
+        params_to_jax,
+        save_native,
+        save_revresnet,
+    )
+
+    t0 = time.perf_counter()
+    save_native(params_to_jax(model.net.state_dict()), f"{root}/w.msgpack")
+    t_write = time.perf_counter() - t0
+    save_revresnet(model.net, f"{root}/w.pt")
+    pngs = {}
+    for ext in ("pt", "msgpack"):
+        tag = f"fast --ckpoint w.{ext}"
+        img[tag] = image(tag, "--fast", "--ckpoint", f"{root}/w.{ext}")
+        pngs[ext] = open(f"{img[tag][1]}/content_style.png", "rb").read()
+    same = np.array_equal(img["fast --ckpoint w.pt"][0],
+                          img["fast global"][0])
+    print(f"gate image CLI --fast --ckpoint w.msgpack ("
+          f"{os.path.getsize(f'{root}/w.msgpack')} bytes, written in "
+          f"{t_write:.3f} s) vs w.pt: PNG equal byte for byte: "
+          f"{pngs['msgpack'] == pngs['pt']}; w.pt vs no --ckpoint (the same "
+          f"seed-0 weights): equal {same} [{smi}]")
+    if pngs["msgpack"] != pngs["pt"]:
+        raise AssertionError("image CLI: w.msgpack and w.pt differ")
     seg_dir = f"{img['fast auto_seg'][1]}/segmentation"
     img["f32 on the fast masks"] = image(
         "f32 on the fast masks", "--content_seg",
@@ -2885,11 +2921,13 @@ def phase_serve(ops, model, device, gen, total, smi):
 # Cholesky cWCT of an affine image of z_c returns z_c), so its value is
 # the route's roundoff, larger in bf16 by design (+59 %, within the atol;
 # loss_total +10.4 % and +10.8 % in two runs).
-# A step resumed from last.pt and last.pt.opt.pt against the uninterrupted
-# step on the same batch: the checkpoint restores the weights, Adam's
-# moments, its step and the schedule bit for bit; the step's parameters
-# then agree within TRAIN_RESUME_TOL, a tenth of one step's size (lr 1e-4;
-# a resume that lost Adam's moments moves parameters by ~lr). cuDNN runs
+# A step resumed from last.pt and last.pt.opt.msgpack (the JAX trainer's
+# flat layout, which save_checkpoint writes), and from the same state in
+# the JAX package's tree layout, against the uninterrupted step on the
+# same batch: the checkpoint restores the weights, Adam's moments, its
+# step and the schedule bit for bit; the step's parameters then agree
+# within TRAIN_RESUME_TOL, a tenth of one step's size (lr 1e-4; a resume
+# that lost Adam's moments moves parameters by ~lr). cuDNN runs
 # deterministic algorithms for the check, but the reflection pad's backward
 # adds with atomics, so two runs of one step differ (measured 5.4e-7; the
 # run prints that floor).
@@ -2978,9 +3016,12 @@ def _train_cli(device, gen, smi):
         assert all(math.isfinite(v) for v in vals), line
         # the step that starts past training_iterations (8) is temporal
         assert (vals[4] > 0) == (i > 9), line
+    # the resume read Adam's state from the native file, as the JAX
+    # package's --resume reads its own
     for name in ("model_image.pt", "model_video.pt", "last.pt",
-                 "last.pt.opt.pt"):
+                 "last.pt.opt.msgpack"):
         assert os.path.exists(f"{ckpt}/{name}"), name
+    assert not os.path.exists(f"{ckpt}/last.pt.opt.pt")
     for name in ("train_current.jpg", "train_00000008.jpg",
                  "train_00000016.jpg"):
         assert os.path.exists(f"{run}/images/{name}"), name
@@ -3030,6 +3071,7 @@ def _train_correctness(device, gen, smi):
     """Part 2: float32 against float64, bf16 against float32, and a resumed
     step against the uninterrupted one."""
     import copy
+    import os
     import tempfile
 
     from vstnet_tpu_torch.config import PHOTO_CONFIG
@@ -3075,8 +3117,10 @@ def _train_correctness(device, gen, smi):
 
     _bf16_vs_f32(net, vgg, (a, s, flow, noise), w, g32, aux32, smi)
 
-    # resume: two steps, a checkpoint, then the same third step from the
-    # live state and from the checkpoint (twice, for the floor)
+    # resume: two steps, a checkpoint (last.pt and last.pt.opt.msgpack,
+    # the JAX trainer's flat layout), then the same third step from the
+    # live state and from the checkpoint (twice, for the floor), and from
+    # the same mid-run state written in the JAX package's tree layout
     tc = tr.TrainConfig(weights=LossWeights(temporal=0.0))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3086,18 +3130,19 @@ def _train_correctness(device, gen, smi):
         for a_, s_ in batches[:2]:
             tr.train_step(state, vgg, a_, s_, tc)
         tmp = tempfile.TemporaryDirectory(prefix="vstnet_resume_")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         tr.save_checkpoint(state, tmp.name)
-        resumed = [tr.load_checkpoint(tc, tmp.name, device=device)
-                   for _ in range(2)]
-        r = resumed[0]
-        assert r.step == state.step == 2
-        for p, q in zip(state.net.parameters(), r.net.parameters()):
-            assert torch.equal(p, q)
-        so, ro = state.opt.state_dict(), r.opt.state_dict()
-        for i, st in so["state"].items():
-            for k, v in st.items():
-                assert torch.equal(v.cpu(), ro["state"][i][k].cpu()), k
-        assert state.sched.state_dict() == r.sched.state_dict()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = [tr.load_checkpoint(tc, tmp.name, device=device)]
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        resumed.append(tr.load_checkpoint(tc, tmp.name, device=device))
+        tree_dir = _tree_layout_checkpoint(tr, state, tmp.name)
+        resumed.append(tr.load_checkpoint(tc, tree_dir, device=device))
+        for r in resumed:
+            _same_train_state(state, r)
         for st in [state] + resumed:
             tr.train_step(st, vgg, *batches[2], tc)
 
@@ -3108,14 +3153,66 @@ def _train_correctness(device, gen, smi):
 
         d_resume, d_floor = diff(state, resumed[0]), diff(resumed[0],
                                                           resumed[1])
+        d_tree = diff(state, resumed[2])
+        nbytes = os.path.getsize(f"{tmp.name}/last.pt.opt.msgpack")
         tmp.cleanup()
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    print(f"train resume: checkpoint at step 2 restores weights, Adam state "
-          f"and schedule bit for bit; step 3 resumed vs uninterrupted: max "
-          f"param diff {d_resume:.3e} (gate {TRAIN_RESUME_TOL}), two resumed "
-          f"runs of step 3: {d_floor:.3e} [{smi}]")
-    assert d_resume <= TRAIN_RESUME_TOL
+    print(f"train resume: checkpoint at step 2 (last.pt.opt.msgpack, "
+          f"{nbytes} bytes; save_checkpoint {t_save:.3f} s, load_checkpoint "
+          f"{t_load:.3f} s) restores weights, Adam state, its step and the "
+          f"schedule's count bit for bit, and so does the JAX tree layout; "
+          f"step 3 resumed vs uninterrupted: max param diff {d_resume:.3e} "
+          f"(flat), {d_tree:.3e} (tree) (gate {TRAIN_RESUME_TOL}), two "
+          f"resumed runs of step 3: {d_floor:.3e} [{smi}]")
+    assert max(d_resume, d_tree) <= TRAIN_RESUME_TOL
+
+
+def _tree_layout_checkpoint(tr, state, flat_dir):
+    """`state`'s checkpoint with its optimizer in the JAX package's tree
+    layout (a TrainState's save_checkpoint: Adam's count, the mu leaves
+    and the nu leaves in tree order, the schedule's count), in a new
+    directory under flat_dir."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from vstnet_tpu_torch.io.checkpoint import (
+        jax_tree_leaves,
+        params_to_jax,
+        save_native,
+    )
+
+    d = os.path.join(flat_dir, "tree")
+    os.makedirs(d)
+    shutil.copy(os.path.join(flat_dir, "last.pt"), d)
+    named = dict(state.net.named_parameters())
+    moments = [jax_tree_leaves(params_to_jax(
+        {k: state.opt.state[p][m] for k, p in named.items()}))
+        for m in ("exp_avg", "exp_avg_sq")]
+    count = int(state.opt.state[next(iter(named.values()))]["step"])
+    save_native({"opt_state": {"leaves": [
+        np.asarray(count, np.int32), *moments[0], *moments[1],
+        np.asarray(state.sched.last_epoch, np.int32)]},
+        "step": np.asarray(state.step)},
+        os.path.join(d, "last.pt.opt.msgpack"))
+    return d
+
+
+def _same_train_state(state, r):
+    """r restores state's step, weights, Adam's state (on the parameters'
+    device, fused) and the schedule (its count and next learning rate) bit
+    for bit."""
+    assert r.step == state.step
+    for p, q in zip(state.net.parameters(), r.net.parameters()):
+        assert torch.equal(p, q)
+        for k, v in state.opt.state[p].items():
+            w = r.opt.state[q][k]
+            assert w.device == v.device and torch.equal(v, w), k
+    assert r.opt.defaults["fused"] == state.opt.defaults["fused"]
+    assert r.sched.last_epoch == state.sched.last_epoch
+    assert r.sched.get_last_lr() == state.sched.get_last_lr()
 
 
 def _idle_share(step):
@@ -3518,11 +3615,45 @@ def phase_tools(ops, model, seg, device, gen, total, smi, exported):
     t_smoke = time.perf_counter() - t0 - t_gguf
     _tools_export(model, seg.net, device, gen, smi, exported)
     _tools_export_off_card(model, device, smi)
+    _tools_invconv(device, smi)
     wall = time.perf_counter() - t0
     print(f"phase tools: {wall:.1f} s (gguf {t_gguf:.1f}, smoke runs "
           f"{t_smoke:.1f}: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items())
-          + f"; export {wall - t_gguf - t_smoke:.1f})")
+          + f"; export and invconv {wall - t_gguf - t_smoke:.1f})")
+
+
+# the invertible 1x1 conv's shape (B, H, W, C) and its float32 bound:
+# inputs N(0,1), an orthogonal weight, so outputs of the inputs' size and
+# a 64-term float32 dot product a value, twice in the round trip
+INVCONV_SHAPE = (4, 512, 512, 64)
+INVCONV_TOL = 1e-4
+
+
+def _tools_invconv(device, smi):
+    """ops/invconv.py on the card (no kernel: one matmul each way, TF32
+    off): the round trip and the forward against float64. Its generator is
+    its own, so that later phases draw what they drew before."""
+    from vstnet_tpu_torch.ops import invconv
+
+    gen = torch.Generator().manual_seed(11)
+
+    params = invconv.init_invconv(gen, INVCONV_SHAPE[-1], device=device)
+    x = torch.randn(INVCONV_SHAPE, generator=gen).to(device)
+    y = invconv.invconv_forward(params, x)
+    back = invconv.invconv_inverse(params, y)
+    p64 = {k: v.double() for k, v in params.items()}
+    y64 = torch.einsum("bhwc,oc->bhwo", x.double(), p64["w"]) + p64["b"]
+    trip = float((back - x).abs().max())
+    fwd = float((y.double() - y64).abs().max())
+    ms = _time_ms(lambda: invconv.invconv_forward(params, x))
+    ms_inv = _time_ms(lambda: invconv.invconv_inverse(params, y))
+    print(f"invconv {INVCONV_SHAPE} float32 on the card: inverse(forward(x)) "
+          f"max abs err {trip:.3e}, forward vs float64 {fwd:.3e} (gate "
+          f"{INVCONV_TOL}); forward {ms:.3f} ms, inverse {ms_inv:.3f} ms "
+          f"[{smi}]")
+    assert y.dtype == torch.float32 and bool(torch.isfinite(back).all())
+    assert max(trip, fwd) <= INVCONV_TOL, (trip, fwd)
 
 
 # ---------------------------------------------------------------------------
@@ -4858,7 +4989,7 @@ def main():
         spt = phases.run("spatial train f64", spt_references, device)
         # no compile runs beside a phase that prints a host clock
         phases.run("package join", packages.join)
-        phases.run("cli", phase_cli, ops, device, gen, total, smi)
+        phases.run("cli", phase_cli, ops, model, device, gen, total, smi)
         phases.run("ultra", phase_ultra, ops, model, device, gen, total,
                    smi)
         phases.run("serve", phase_serve, ops, model, device, gen, total,

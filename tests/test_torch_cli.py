@@ -302,16 +302,15 @@ def test_image_cli_output_name(world):
 
 
 def test_image_cli_refusals(world, tmp_path):
-    """With a .msgpack checkpoint, with bad --styles/--alpha_s flags, and
-    without a device where there is no card, the image CLI exits non-zero
-    and writes nothing."""
+    """With bad --styles/--alpha_s/--alpha_c flags, and without a device
+    where there is no card, the image CLI exits non-zero and writes
+    nothing."""
     from vstnet_tpu_torch.cli.image_transfer import main
 
     base = ["--content", str(world["root"] / "content.png"), "--style",
             str(world["root"] / "style.png"), "--out_dir", str(tmp_path),
             "--max_size", "32"]
-    bad = [["--ckpoint", "w.msgpack", "--device", "cpu"],
-           ["--styles", "a.png", "b.png", "--alpha_s", "1", "--device",
+    bad = [["--styles", "a.png", "b.png", "--alpha_s", "1", "--device",
             "cpu"],
            ["--alpha_s", "1", "--device", "cpu"],
            ["--styles", "a.png", "b.png", "--auto_seg", "--device", "cpu"],

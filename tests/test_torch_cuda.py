@@ -982,3 +982,41 @@ def test_program_exported_off_the_card_matches_the_card_export(
         and x.device.type == "cuda" else x.dtype))
     card_rule = ex.export_stylize(net, cfg, hw, hw, device=dev)[0]
     assert _graph_ops(card_rule) == _graph_ops(eps[dev])
+
+
+def test_card_resume_from_opt_msgpack_equals_resume_in_memory(dev, tmp_path,
+                                                               monkeypatch):
+    """Fused Adam on the card: two updates from seeded gradients, the
+    checkpoint (last.pt and last.pt.opt.msgpack), then the next update
+    from the live state and from the loaded one: Adam's state on the card
+    and the schedule restored bit for bit, and the two updates equal."""
+    from vstnet_tpu_torch.train import trainer as tr
+
+    monkeypatch.setattr(tr, "PHOTO_CONFIG",
+                        RevResNetConfig(n_blocks=(1, 1, 1)))
+    tc = tr.TrainConfig(lr=1e-2, lr_decay=0.5)
+    state = tr.init_train_state(tc, dev)
+    assert state.opt.defaults["fused"]
+    g = torch.Generator().manual_seed(4)
+    grads = [[(torch.randn(p.shape, generator=g) * 1e-2).to(dev)
+              for p in state.net.parameters()] for _ in range(3)]
+    for gs in grads[:2]:
+        for p, x in zip(state.net.parameters(), gs):
+            p.grad = x.clone()
+        tr.apply_gradients(state, tc)
+    tr.save_checkpoint(state, str(tmp_path))
+    r = tr.load_checkpoint(tc, str(tmp_path), device=dev)
+    assert r.step == 2 and r.opt.defaults["fused"]
+    assert r.sched.last_epoch == 2
+    assert r.sched.get_last_lr() == state.sched.get_last_lr()
+    for p, q in zip(state.net.parameters(), r.net.parameters()):
+        assert torch.equal(p, q)
+        for k, v in state.opt.state[p].items():
+            assert r.opt.state[q][k].device == v.device
+            assert torch.equal(r.opt.state[q][k], v), k
+    for st in (state, r):
+        for p, x in zip(st.net.parameters(), grads[2]):
+            p.grad = x.clone()
+        tr.apply_gradients(st, tc)
+    for p, q in zip(state.net.parameters(), r.net.parameters()):
+        assert torch.equal(p, q)

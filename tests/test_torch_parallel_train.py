@@ -261,7 +261,7 @@ def test_train_data_parallel_on_two_gloo_ranks(dp_run):
     assert all(re.match(r"^Iteration: \d{8}/00000004  content_loss", x)
                for x in lines)
     assert [p.name for p in d.rglob("last.pt")] == ["last.pt"]
-    assert (run / "checkpoints" / "last.pt.opt.pt").exists()
+    assert (run / "checkpoints" / "last.pt.opt.msgpack").exists()
     t0, t1 = _load(d, "train0"), _load(d, "train1")
     assert t0["step"] == t1["step"] == 2
     for k, v in t0["params"].items():

@@ -412,9 +412,48 @@ def test_cli_trains_and_resumes(tmp_path, monkeypatch):
     assert "loss_tmp:0.0000" in lines[1]
     assert "loss_tmp:0.0000" not in lines[2]
     ckpt = run / "checkpoints"
-    for name in ("last.pt", "last.pt.opt.pt", "model_image.pt"):
+    for name in ("last.pt", "last.pt.opt.msgpack", "model_image.pt"):
         assert (ckpt / name).exists(), name
     assert (run / "images" / "train_current.jpg").exists()
+
+
+def test_opt_pt_of_earlier_versions_still_resumes(tmp_path, monkeypatch):
+    """A checkpoint whose optimizer went to `<ckpt>.opt.pt` (torch.save of
+    the optimizer's and the schedule's state dicts and the step, as this
+    trainer wrote before `.opt.msgpack`) resumes with Adam's state, the
+    schedule and the step as saved, and its next update equals the live
+    state's bit for bit."""
+    import vstnet_tpu_torch.train.trainer as tr
+    from vstnet_tpu_torch.io.checkpoint import save_revresnet
+
+    monkeypatch.setattr(tr, "PHOTO_CONFIG", SMALL)
+    tc = tr.TrainConfig(lr=1e-2, lr_decay=0.5)
+    state = tr.init_train_state(tc, "cpu")
+    rng = np.random.default_rng(5)
+    grads = [[_t((rng.normal(size=tuple(p.shape)) * 1e-2).astype(np.float32))
+              for p in state.net.parameters()] for _ in range(3)]
+    for gs in grads[:2]:
+        for p, g in zip(state.net.parameters(), gs):
+            p.grad = g.clone()
+        tr.apply_gradients(state, tc)
+    save_revresnet(state.net, str(tmp_path / "last.pt"))
+    torch.save({"optimizer": state.opt.state_dict(),
+                "scheduler": state.sched.state_dict(), "step": state.step},
+               tmp_path / "last.pt.opt.pt")
+    r = tr.load_checkpoint(tc, str(tmp_path), device="cpu")
+    assert r.step == 2 and r.sched.last_epoch == 2
+    assert r.opt.param_groups[0]["lr"] == state.opt.param_groups[0]["lr"]
+    for p, q in zip(state.net.parameters(), r.net.parameters()):
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(state.opt.state[p][k], r.opt.state[q][k]), k
+    for st in (state, r):
+        for p, g in zip(st.net.parameters(), grads[2]):
+            p.grad = g.clone()
+        tr.apply_gradients(st, tc)
+    for p, q in zip(state.net.parameters(), r.net.parameters()):
+        assert torch.equal(p, q)
+    assert tr.load_checkpoint(tc, str(tmp_path), resume_iter=7,
+                              device="cpu").step == 7
 
 
 def test_cli_without_card_or_device_exits(tmp_path, monkeypatch):

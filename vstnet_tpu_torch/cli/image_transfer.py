@@ -15,8 +15,9 @@ more, --device (default: the CUDA card; `--device cpu` runs on the CPU):
 A content whose longer side exceeds --ultra_threshold takes the tiled
 ultra-resolution path (models/ultra.py) in every mode: global, regional
 (--auto_seg or given masks), interpolated (--styles/--alpha_s or
---alpha_c), and fused (--fast). Not in the port: native .msgpack
-checkpoints (a format of the JAX package).
+--alpha_c), and fused (--fast). --ckpoint takes a reference .pt/.pth
+file or the JAX package's native .msgpack weights (io/checkpoint.py's
+load_native, no flax needed).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def build_parser():
     p.add_argument("--mode", type=str, default="photorealistic",
                    choices=["photorealistic", "artistic"])
     p.add_argument("--ckpoint", type=str, default=None,
-                   help=".pt/.pth checkpoint (reference format)")
+                   help=".pt/.pth (reference format) or .msgpack "
+                        "(the JAX package's native format)")
     p.add_argument("--content", type=str, default="data/content/01.jpg")
     p.add_argument("--style", type=str, default="data/style/01.jpg")
     p.add_argument("--out_dir", type=str, default="output")
@@ -105,11 +107,6 @@ def main(argv=None):
         raise SystemExit(
             f"error: --alpha_c must be in [0, 1], got {args.alpha_c}")
     alpha_s = _style_weights(args)
-    if args.ckpoint and args.ckpoint.endswith(".msgpack"):
-        raise SystemExit(
-            "error: .msgpack checkpoints are the JAX package's native "
-            "(flax) format, which the port does not read; pass a .pt/.pth "
-            "checkpoint")
 
     import torch
 
@@ -130,7 +127,12 @@ def main(argv=None):
     # or in matmuls, for this process
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.ckpoint:
+    if args.ckpoint and args.ckpoint.endswith(".msgpack"):
+        from vstnet_tpu_torch.io.checkpoint import load_native
+
+        model = StyleModel.from_jax_params(load_native(args.ckpoint),
+                                           args.mode, device=device)
+    elif args.ckpoint:
         model = StyleModel.from_checkpoint(args.ckpoint, args.mode,
                                            device=device)
     else:

@@ -15,6 +15,16 @@ which models/revresnet.RevResNet reproduces, so they load with a plain
   * params_from_jax(tree): the JAX package's params pytree as numpy arrays
     (HWIO weights) -> the same state dict (OIHW weights).
 
+params_to_jax is its inverse. ravel_jax_tree and unravel_jax_tree lay a
+tree out as jax.flatten_util.ravel_pytree does (jax.tree_util's leaf
+order: dict keys sorted, lists in order, each leaf in C order), the layout
+of the JAX trainer's flat parameter and optimizer vectors.
+
+The JAX package's native format, flax's msgpack, is read and written by
+load_native and save_native (io/msgpack.py, no flax): numpy trees, lists
+written as {"0": ...} maps and maps whose keys are all digits read back as
+lists, as vstnet_tpu/io/checkpoint.py's pair does.
+
 The segmenter's checkpoints carry the reference SegFormer keys
 (`backbone.*`, `decode_head.*`), which models/segformer.SegFormer
 reproduces. Its two loaders are load_segformer(path) and
@@ -25,10 +35,13 @@ convs) -> that state dict.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 import torch
+
+from vstnet_tpu_torch.io import msgpack
 
 _SEQ_IDX = {"conv1": 1, "conv2": 4, "conv3": 7}
 
@@ -112,6 +125,105 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     for i, bp in enumerate(tree["reduction"]):
         _branch(out, bp, f"channel_reduction.block_list.{i}")
     return out
+
+
+def _np32(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def params_to_jax(sd) -> Dict:
+    """RevResNet state dict (tensors or arrays, OIHW weights) -> the JAX
+    params {"stack": [...], "reduction": [...]} of float32 numpy arrays,
+    HWIO weights (the JAX package's revresnet_from_torch)."""
+    def branch(prefix):
+        return {name: {
+            "w": np.ascontiguousarray(
+                _np32(sd[f"{prefix}.conv.{idx}.weight"]).transpose(
+                    2, 3, 1, 0)),
+            "b": _np32(sd[f"{prefix}.conv.{idx}.bias"])}
+            for name, idx in _SEQ_IDX.items()}
+
+    n_stack = 1 + max(int(k.split(".")[1]) for k in sd
+                      if k.startswith("stack."))
+    n_red = 1 + max(int(k.split(".")[2]) for k in sd
+                    if k.startswith("channel_reduction.block_list."))
+    return {"stack": [branch(f"stack.{i}") for i in range(n_stack)],
+            "reduction": [branch(f"channel_reduction.block_list.{i}")
+                          for i in range(n_red)]}
+
+
+def jax_tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in jax.tree_util's order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in jax_tree_leaves(v)]
+    return [tree]
+
+
+def ravel_jax_tree(tree) -> np.ndarray:
+    """One vector of every leaf, as jax.flatten_util.ravel_pytree lays it
+    out."""
+    return np.concatenate([np.ravel(np.asarray(x))
+                           for x in jax_tree_leaves(tree)])
+
+
+def unravel_jax_tree(flat, like):
+    """ravel_jax_tree's inverse: `flat` split into a tree of `like`'s
+    structure and leaf shapes (views into `flat`)."""
+    flat = np.asarray(flat)
+    sizes = [int(np.prod(np.shape(x))) for x in jax_tree_leaves(like)]
+    if flat.ndim != 1 or flat.size != sum(sizes):
+        raise ValueError(f"a vector of shape {flat.shape} does not hold "
+                         f"the tree's {sum(sizes)} values")
+    pos = 0
+
+    def build(t):
+        nonlocal pos
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        n = int(np.prod(np.shape(t)))
+        pos += n
+        return flat[pos - n:pos].reshape(np.shape(t))
+
+    return build(like)
+
+
+def _to_numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _to_numpy_tree(v) for i, v in enumerate(tree)}
+    return np.asarray(tree)
+
+
+def _from_numpy_tree(tree):
+    if isinstance(tree, dict):
+        keys = list(tree)
+        if keys and all(k.isdigit() for k in keys):
+            return [_from_numpy_tree(tree[str(i)]) for i in range(len(keys))]
+        return {k: _from_numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def save_native(tree, path: str):
+    """Write `tree` (dicts and lists of anything np.asarray takes) in the
+    JAX package's native format: flax msgpack, every leaf a numpy array,
+    lists as {"0": ...} maps."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.writelines(msgpack.pack_chunks(_to_numpy_tree(tree)))
+
+
+def load_native(path: str):
+    """A native file -> a tree of numpy arrays, maps whose keys are all
+    digits as lists."""
+    with open(path, "rb") as f:
+        return _from_numpy_tree(msgpack.unpackb(f.read()))
 
 
 def load_segformer(path: str) -> Dict[str, torch.Tensor]:

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from vstnet_tpu_torch.config import ARTISTIC_CONFIG, PHOTO_CONFIG, RevResNetConfig
-from vstnet_tpu_torch.io.checkpoint import load_revresnet
+from vstnet_tpu_torch.io.checkpoint import load_revresnet, params_from_jax
 from vstnet_tpu_torch.models import cwct
 from vstnet_tpu_torch.models import revresnet_fast as rf
 from vstnet_tpu_torch.models.remapping import (
@@ -342,6 +342,16 @@ class StyleModel:
         cfg = _config(mode)
         net = RevResNet(cfg, device=device)
         net.load_state_dict(load_revresnet(path, strict=strict, cfg=cfg))
+        return cls(cfg=cfg, net=net, mode=mode, segmenter=segmenter)
+
+    @classmethod
+    def from_jax_params(cls, tree, mode: str = "photorealistic",
+                        device=None, segmenter: Optional[Segmenter] = None):
+        """The JAX package's params tree ({"stack", "reduction"} of HWIO
+        arrays; its .msgpack weights are io.checkpoint.load_native's)."""
+        cfg = _config(mode)
+        net = RevResNet(cfg, device=device)
+        net.load_state_dict(params_from_jax(tree))
         return cls(cfg=cfg, net=net, mode=mode, segmenter=segmenter)
 
     def stylize(self, content, style, cmask=None, smask=None, alpha_c=None,

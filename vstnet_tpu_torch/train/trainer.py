@@ -6,9 +6,14 @@ Counterpart of vstnet_tpu/train/trainer.py: the same defaults,
 checkpoint names (last.pt, model_image.pt, model_video.pt) and loss.log
 line format, on one device or data-parallel over a torch.distributed
 group of one process per device (`train`'s data_parallel). Model weights are written in the reference key
-schema and load in either package; the optimizer, the schedule and the
-step go to `<checkpoint>.opt.pt` (torch.save), which only this package
-reads (the JAX package's `.opt.msgpack` is flax's).
+schema and load in either package; Adam's state, the schedule's count and
+the step go to `<checkpoint>.opt.msgpack` in the JAX trainer's flat layout
+(flax msgpack: Adam's int32 count, mu and nu as float32 vectors in
+ravel_pytree's order, the schedule's int32 count, and the step), so a run
+resumes in either package. load_checkpoint reads that file, the JAX
+package's tree layout (a TrainState's: count, the L mu and L nu leaves in
+tree order, the schedule's count), or, where neither exists, an
+`.opt.pt` that earlier versions of this module wrote (torch.save).
 
 The optimizer is optax's chain rebuilt in torch: the clip to a global norm
 of 5 follows optax's formula, g / norm * max_norm where norm >= max_norm
@@ -35,7 +40,17 @@ from vstnet_tpu_torch.config import (
     RevResNetConfig,
 )
 from vstnet_tpu_torch.device import resolve_device
-from vstnet_tpu_torch.io.checkpoint import load_revresnet, save_revresnet
+from vstnet_tpu_torch.io.checkpoint import (
+    jax_tree_leaves,
+    load_native,
+    load_revresnet,
+    params_from_jax,
+    params_to_jax,
+    ravel_jax_tree,
+    save_native,
+    save_revresnet,
+    unravel_jax_tree,
+)
 from vstnet_tpu_torch.models import cwct
 from vstnet_tpu_torch.models.revresnet import RevResNet
 from vstnet_tpu_torch.train.losses import DTYPES, LossWeights, loss_and_grads
@@ -89,10 +104,17 @@ def make_optimizer(tc: TrainConfig, params):
     params = list(params)
     opt = torch.optim.Adam(params, lr=tc.lr, betas=(0.9, 0.999), eps=1e-8,
                            fused=params[0].is_cuda)
+    return opt, make_schedule(tc, opt)
+
+
+def make_schedule(tc: TrainConfig, opt, count: int = 0):
+    """The LambdaLR of lr0 / (1 + decay * t) on `opt`, after `count`
+    updates: its next learning rate is lr0 / (1 + decay * count)."""
+    for g in opt.param_groups:
+        g["initial_lr"] = tc.lr
     decay = tc.lr_decay
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda t: 1.0 / (1.0 + decay * t))
-    return opt, sched
+    return torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda t: 1.0 / (1.0 + decay * t), last_epoch=count - 1)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -140,7 +162,8 @@ def train_step(state: TrainState, vgg, images_a, images_b, tc: TrainConfig,
 
 
 # ---------------------------------------------------------------------------
-# Checkpoints (reference names; weights readable by both packages)
+# Checkpoints (reference names; weights and optimizer readable by both
+# packages)
 # ---------------------------------------------------------------------------
 
 def save_checkpoint(state: TrainState, ckpt_dir: str, name: str = "last.pt",
@@ -149,29 +172,100 @@ def save_checkpoint(state: TrainState, ckpt_dir: str, name: str = "last.pt",
     path = os.path.join(ckpt_dir, name)
     save_revresnet(state.net, path)
     if with_optimizer:
-        torch.save({"optimizer": state.opt.state_dict(),
-                    "scheduler": state.sched.state_dict(),
-                    "step": state.step}, path + ".opt.pt")
+        save_native(native_opt_state(state), path + ".opt.msgpack")
     return path
+
+
+def native_opt_state(state: TrainState) -> dict:
+    """{"opt_state": {"leaves": [count, mu, nu, schedule count]}, "step"}:
+    the optimizer in the JAX trainer's flat layout, with its dtypes (int32
+    counts, float32 moments raveled in ravel_pytree's order of the JAX
+    params); a parameter Adam has not stepped has zero moments."""
+    count, mu, nu = 0, {}, {}
+    for k, p in state.net.named_parameters():
+        st = state.opt.state.get(p)
+        if st:
+            count = st["step"]
+            mu[k], nu[k] = st["exp_avg"], st["exp_avg_sq"]
+        else:
+            mu[k] = nu[k] = torch.zeros_like(p)
+    return {"opt_state": {"leaves": [
+        np.asarray(int(count), np.int32),
+        ravel_jax_tree(params_to_jax(mu)),
+        ravel_jax_tree(params_to_jax(nu)),
+        np.asarray(state.sched.last_epoch, np.int32)]},
+        "step": np.asarray(state.step)}
+
+
+def _count(leaf, what: str, path: str) -> int:
+    if np.ndim(leaf) != 0 or np.asarray(leaf).dtype.kind not in "iu":
+        raise ValueError(f"{path}: {what} is not an integer scalar")
+    return int(leaf)
+
+
+def load_native_opt_state(state: TrainState, tc: TrainConfig,
+                          path: str) -> int:
+    """Adam's moments and count and the schedule's count from a native
+    optimizer file, in the flat or the tree layout, into `state`'s
+    optimizer and schedule (exp_avg = mu, exp_avg_sq = nu, transposed
+    HWIO -> OIHW; step = Adam's count; the schedule after its count).
+    Returns the file's step. Raises when the file does not fit the model."""
+    blob = load_native(path)
+    leaves = blob["opt_state"]["leaves"]
+    named = dict(state.net.named_parameters())
+    like = params_to_jax(named)
+    shapes = [x.shape for x in jax_tree_leaves(like)]
+    n_leaf, n_val = len(shapes), sum(int(np.prod(sh)) for sh in shapes)
+    got = [np.shape(x) for x in leaves]
+    if len(leaves) == 4 and got[1] == got[2] == (n_val,):
+        mu, nu = leaves[1], leaves[2]
+    elif (len(leaves) == 2 * n_leaf + 2
+          and got[1:-1] == [tuple(sh) for sh in shapes] * 2):
+        mu = ravel_jax_tree(leaves[1:1 + n_leaf])
+        nu = ravel_jax_tree(leaves[1 + n_leaf:-1])
+    else:
+        raise ValueError(
+            f"{path}: {len(leaves)} optimizer leaves do not fit the "
+            f"model's {n_leaf} parameter tensors of {n_val} values (flat: "
+            f"4 leaves, tree: {2 * n_leaf + 2})")
+    count = _count(leaves[0], "Adam's count", path)
+    sched_count = _count(leaves[-1], "the schedule's count", path)
+    mu = params_from_jax(unravel_jax_tree(mu, like))
+    nu = params_from_jax(unravel_jax_tree(nu, like))
+    sd = state.opt.state_dict()
+    # the optimizer's parameters are net.parameters(), in this order
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+                   for i, k in enumerate(named)}
+    state.opt.load_state_dict(sd)
+    state.sched = make_schedule(tc, state.opt, sched_count)
+    return _count(np.asarray(blob["step"]), "the step", path)
 
 
 def load_checkpoint(tc: TrainConfig, ckpt_dir: str, name: str = "last.pt",
                     resume_iter: int = -1, device=None) -> TrainState:
-    """The state saved by save_checkpoint. Without its .opt.pt the
-    optimizer starts fresh; resume_iter >= 0 overrides the step."""
+    """The state saved by save_checkpoint, or by the JAX package's (its
+    `.opt.msgpack`, flat or tree layout), or an `.opt.pt` of earlier
+    versions. Without an optimizer file the optimizer starts fresh;
+    resume_iter >= 0 overrides the step."""
     device = resolve_device(device)
     path = os.path.join(ckpt_dir, name)
     net = RevResNet(tc.model_cfg, device=device)
     net.load_state_dict(load_revresnet(path))
     state = init_train_state(tc, device, net)
-    opt_path = path + ".opt.pt"
-    if os.path.exists(opt_path):
-        blob = torch.load(opt_path, map_location=device, weights_only=True)
+    step = None
+    if os.path.exists(path + ".opt.msgpack"):
+        step = load_native_opt_state(state, tc, path + ".opt.msgpack")
+    elif os.path.exists(path + ".opt.pt"):
+        blob = torch.load(path + ".opt.pt", map_location=device,
+                          weights_only=True)
         state.opt.load_state_dict(blob["optimizer"])
         state.sched.load_state_dict(blob["scheduler"])
-        state.step = int(blob["step"]) if resume_iter < 0 else resume_iter
-    elif resume_iter >= 0:
+        step = int(blob["step"])
+    if resume_iter >= 0:
         state.step = resume_iter
+    elif step is not None:
+        state.step = step
     return state
 
 
