@@ -20,6 +20,7 @@ Tolerances:
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -118,6 +119,8 @@ def test_healthz_and_registration(server, rng):
     assert info["device"] == "cpu"
     assert info["devices"] == 1 and info["sharded"] is False
     assert info["max_batch"] == 4 and info["fast"] is False
+    if not service.batch_log:
+        assert info["reply_encode_share"] is None
 
     with _put(base + "/styles/wave", _png_bytes(rng, 48, 40)) as r:
         assert json.loads(r.read())["registered"] == "wave"
@@ -127,6 +130,20 @@ def test_healthz_and_registration(server, rng):
     ls, mu = service.styles["wave"]
     c = SMALL.latent_channels
     assert ls.shape[-2:] == (c, c) and mu.shape[-1] == c
+
+    # the reply encodes' share of the worker's time
+    n = len(service.batch_log)
+    _post(base + "/stylize?style=wave", _png_bytes(rng, 32, 32)).close()
+    # the worker logs a batch after its last reply is released
+    deadline = time.monotonic() + WAIT
+    while len(service.batch_log) == n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with urllib.request.urlopen(base + "/healthz", timeout=WAIT) as r:
+        share = json.loads(r.read())["reply_encode_share"]
+    log = list(service.batch_log)
+    enc = sum(e[4] for e in log)
+    assert 0.0 < share < 1.0
+    assert share == pytest.approx(enc / (enc + sum(e[3] for e in log)))
 
 
 def test_stylize_roundtrip_and_bucketing(server, rng):
@@ -272,6 +289,29 @@ def test_concurrent_style_registration_is_safe(rng):
     assert not errs
     assert len(outs) == 4 and len(set(outs)) == 1
     assert set(service.style_names()) == {"base", "s0", "s1", "s2", "s3"}
+
+
+def test_trace_dir_records_the_worker_spans(rng, tmp_path):
+    """A service built with trace_dir writes, when closed, a trace of
+    its worker that holds each batch's device section and reply encodes
+    inside the trace's window."""
+    from vstnet_tpu_torch.runtime import profiling
+
+    service = _service(5, trace_dir=str(tmp_path))
+    try:
+        service.register_style("s", _png_bytes(rng, 32, 32))
+        for _ in range(2):
+            service.stylize(_png_bytes(rng, 32, 32), "s")
+    finally:
+        service.close(timeout=WAIT)
+    assert not service._worker.is_alive()
+    (path,) = profiling.trace_files(str(tmp_path))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("vst.traced") == 1
+    assert names.count("vst.serve_device") == 2
+    assert names.count("vst.serve_reply_encode") == 2
 
 
 def test_close_stops_the_worker():

@@ -66,6 +66,48 @@ def test_trace_reader_counts_kernels_and_the_idle_share(tmp_path):
         profiling.kernel_counts(str(empty))
 
 
+def test_trace_summary_divides_by_the_traced_window_and_lists_spans(
+        tmp_path):
+    """Idle time before the first device event counts, within trace()'s
+    vst.traced window; a span's device time is that of the work launched
+    inside it (the runtime call of the same correlation id)."""
+    def ev(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [
+        ev("vst.traced", "user_annotation", 0, 1000),
+        ev("vst.encode", "user_annotation", 100, 200),
+        ev("vst.decode", "user_annotation", 700, 100),
+        ev("cudaLaunchKernel", "cuda_runtime", 150, 5, corr=1),
+        ev("cudaLaunchKernel", "cuda_runtime", 750, 5, corr=2),
+        ev("cudaMemcpyAsync", "cuda_runtime", 900, 5, corr=3),
+        ev("void vst::k<16>(int)", "kernel", 600, 300, corr=1),
+        ev("void vst::k<16>(int)", "kernel", 900, 50, corr=2),
+        ev("Memcpy DtoH", "gpu_memcpy", 950, 100, corr=3),
+    ]
+    with open(tmp_path / "a.pt.trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+    summary = profiling.summarize_trace(str(tmp_path))
+    # busy [600, 1000] of the window [0, 1000]: the first 600 us idle
+    assert ("3 device events, window 1.000 ms, busy 0.400 ms, idle 60.0 %"
+            in summary)
+    assert "span vst.encode: 1x, host 0.200 ms, device 0.300 ms" in summary
+    assert "span vst.decode: 1x, host 0.100 ms, device 0.050 ms" in summary
+    assert "vst.traced:" not in summary
+
+    logdir = str(tmp_path / "trace")
+    with profiling.trace(logdir):
+        torch.ones(4).sum()
+    (name,) = _trace_files(logdir)
+    with open(os.path.join(logdir, name)) as f:
+        windows = [e for e in json.load(f)["traceEvents"]
+                   if e.get("name") == "vst.traced"]
+    assert len(windows) == 1 and windows[0]["cat"] == "user_annotation"
+
+
 def test_memory_reports_on_the_cpu():
     assert profiling.device_memory_stats("cpu") is None
     assert profiling.call_memory_analysis(torch.ones, 4, device="cpu") is None

@@ -1,9 +1,10 @@
 """HTTP stylization service of the PyTorch port (vstnet_tpu_torch/serve.py).
 
-Counterpart of vstnet_tpu/cli/serve.py, with its flags and one more,
---device. Without it the service keeps a replica on every visible CUDA
-card, as the JAX service runs over its mesh; `--device cuda:k` or
-`--device cpu` keeps one device:
+Counterpart of vstnet_tpu/cli/serve.py, with its flags and two more.
+Without --device the service keeps a replica on every visible CUDA card,
+as the JAX service runs over its mesh; `--device cuda:k` or `--device cpu`
+keeps one device. --trace_dir profiles the batch worker into a Chrome
+trace (runtime/profiling.trace), written when the server stops:
 
     python -m vstnet_tpu_torch.cli.serve --ckpoint model.pt --port 8790 --fast
     curl -X PUT  --data-binary @style.jpg localhost:8790/styles/wave
@@ -37,6 +38,9 @@ def build_parser():
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: every visible CUDA card; "
                         "'cuda:k' or 'cpu' runs on that one)")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="profile the batch worker into a Chrome trace "
+                        "under this directory, written at shutdown")
     return p
 
 
@@ -70,7 +74,8 @@ def main(argv=None):
                            max_batch=args.max_batch,
                            batch_window_ms=args.batch_window_ms,
                            devices=None if args.device is None
-                           else (device,))
+                           else (device,),
+                           trace_dir=args.trace_dir)
     httpd = serve(service, host=args.host, port=args.port)
     print(f"vstnet-torch-serve: {args.mode} "
           f"({'fused bf16' if args.fast else 'f32'}) on "

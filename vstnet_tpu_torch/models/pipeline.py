@@ -38,15 +38,22 @@ from vstnet_tpu_torch.ops.resize import (
     resize_bilinear,
     resize_nearest,
 )
+from vstnet_tpu_torch.runtime.profiling import span
 
 
 @torch.no_grad()
 def stylize(net: RevResNet, content, style):
     """Global stylization on the standard path:
-    decode(cWCT(encode(content), encode(style)))."""
-    z_c = net.encode(content)
-    z_s = net.encode(style)
-    return net.decode(cwct.transfer(z_c, z_s))
+    decode(cWCT(encode(content), encode(style))), its stages under the
+    spans encode (each image), cwct and decode."""
+    with span("encode"):
+        z_c = net.encode(content)
+    with span("encode"):
+        z_s = net.encode(style)
+    with span("cwct"):
+        z_cs = cwct.transfer(z_c, z_s)
+    with span("decode"):
+        return net.decode(z_cs)
 
 
 @torch.no_grad()
@@ -157,20 +164,24 @@ def make_fused_video_fn(cfg: RevResNetConfig, out_u8: bool = False,
     alpha_c interpolated transfer; alpha_c is a run-time value) against the
     precomputed packed style factors (cwct.style_factors_packed) ->
     packed decode, clamped to [0,1]. Computes in the packed weights' dtype;
-    out_u8 packs the frames to uint8 on the device."""
+    out_u8 packs the frames to uint8 on the device. The stages run under
+    the spans encode, cwct and decode (runtime/profiling.span)."""
     c_lat = cfg.latent_channels
 
     @torch.no_grad()
     def fn(fast_params, frames, ls, mu_s, *alpha):
-        zp = rf.encode_fast(fast_params, frames.to(fast_params["dtype"]),
-                            cfg, packed_latent=True)
-        if interp:
-            z_cs = cwct.interp_with_factors_packed(zp, ls, mu_s, alpha[0],
-                                                   c_lat)
-        else:
-            z_cs = cwct.transfer_with_factors_packed(zp, ls, mu_s, c_lat)
-        out = rf.decode_fast(fast_params, z_cs, cfg, packed_latent=True)
-        return _pack_frames(out, out_u8)
+        with span("encode"):
+            zp = rf.encode_fast(fast_params, frames.to(fast_params["dtype"]),
+                                cfg, packed_latent=True)
+        with span("cwct"):
+            if interp:
+                z_cs = cwct.interp_with_factors_packed(zp, ls, mu_s,
+                                                       alpha[0], c_lat)
+            else:
+                z_cs = cwct.transfer_with_factors_packed(zp, ls, mu_s, c_lat)
+        with span("decode"):
+            out = rf.decode_fast(fast_params, z_cs, cfg, packed_latent=True)
+            return _pack_frames(out, out_u8)
 
     return fn
 
@@ -210,26 +221,32 @@ def make_masked_fused_video_fn(cfg: RevResNetConfig, min_ratio: float = 0.02,
     seg_hw=(sh, sw): run the segmenter on bilinearly downscaled frames; the
     returned masks are upsampled back to frame resolution (nearest).
     seg_half (default True): bf16 backbone and head. out_u8 packs the
-    frames to uint8 on the device."""
+    frames to uint8 on the device. The stages run under the spans segment,
+    remap, encode, regional_cwct and decode (runtime/profiling.span)."""
 
     @torch.no_grad()
     def fn(fast_params, seg_net, mapping, style_region, remap_plan, frames):
         labels_k, ns_k, mean_s_k, cov_s_k = style_region
         in_style, cross_tab = remap_plan
         h, w = frames.shape[1], frames.shape[2]
-        seg_in = frames
-        if seg_hw is not None and tuple(seg_hw) != (h, w):
-            seg_in = resize_bilinear(frames, seg_hw[0], seg_hw[1])
-        cm = segment_mask(seg_net, seg_in, half=seg_half)
-        cm = video_remap(cm, in_style, cross_tab, mapping, min_ratio)
-        cm = resize_nearest(cm, h, w)
         dt = fast_params["dtype"]
-        z_c = rf.encode_fast(fast_params, frames.to(dt), cfg)
-        z_cs = cwct.transfer_masked_factored(
-            z_c, _mask_to_latent(cm, z_c.shape), labels_k, ns_k, mean_s_k,
-            cov_s_k)
-        out = rf.decode_fast(fast_params, z_cs.to(dt), cfg)
-        return _pack_frames(out, out_u8), cm
+        with span("segment"):
+            seg_in = frames
+            if seg_hw is not None and tuple(seg_hw) != (h, w):
+                seg_in = resize_bilinear(frames, seg_hw[0], seg_hw[1])
+            cm = segment_mask(seg_net, seg_in, half=seg_half)
+        with span("remap"):
+            cm = video_remap(cm, in_style, cross_tab, mapping, min_ratio)
+            cm = resize_nearest(cm, h, w)
+        with span("encode"):
+            z_c = rf.encode_fast(fast_params, frames.to(dt), cfg)
+        with span("regional_cwct"):
+            z_cs = cwct.transfer_masked_factored(
+                z_c, _mask_to_latent(cm, z_c.shape), labels_k, ns_k,
+                mean_s_k, cov_s_k)
+        with span("decode"):
+            out = rf.decode_fast(fast_params, z_cs.to(dt), cfg)
+            return _pack_frames(out, out_u8), cm
 
     return fn
 

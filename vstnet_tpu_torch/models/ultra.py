@@ -6,7 +6,8 @@ and the kernels' shapes stay those of one tile batch, in three steps:
 
   1. style factors: the style image is encoded whole (styles are small)
      and reduced to (Ls, mu_s) by cwct.style_factors;
-  2. content statistics, streamed: each tile batch is encoded and the
+  2. content statistics, streamed (pass 1, under the span tile_pass1 of
+     runtime/profiling.span): each tile batch is encoded and the
      latent moments of the pixels each tile owns (every latent pixel is
      owned by exactly one tile) are added to accumulators in
      cwct._accumulate's dtype (float64 on a card; float32 on the CPU, as
@@ -15,7 +16,7 @@ and the kernels' shapes stay those of one tile batch, in three steps:
      pixel lies a receptive field inside its tile (the network is fully
      convolutional);
   3. transform, decode and a raised-cosine blend of each tile into (H, W)
-     float32 canvases.
+     float32 canvases (pass 2, under the span tile_pass2).
 
 With an overlap of at least the receptive field the result equals the
 whole-image pipeline to float tolerance; smaller overlaps blend
@@ -64,6 +65,7 @@ from vstnet_tpu_torch.config import RevResNetConfig
 from vstnet_tpu_torch.models import cwct
 from vstnet_tpu_torch.models import revresnet_fast as rf
 from vstnet_tpu_torch.ops.resize import resize_nearest
+from vstnet_tpu_torch.runtime.profiling import span
 
 # tiles per batch: pass 1 and pass 2 each run ceil(n_tiles / TILE_BATCH)
 # batches of this many tiles
@@ -296,15 +298,16 @@ def _content_stats(g, weights, content, cfg, fast, tile_batch):
     """Pass 1 of the global modes: (mean_c, cov_c) float32 of the whole
     image's latent from the tiles' owned pixels, summed and formed (Gram
     - n mean mean^T, which cancels digits) in _zero_moments' dtype and
-    rounded once."""
-    acc = _zero_moments(cfg.latent_channels, content.device)
-    for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", content.device):
-        acc = _moments_chunk(weights, content, y0s, x0s, acc, owns, cfg,
-                             g.th, g.tw, fast)
-    n, s1, s2 = acc
-    mean_c = s1 / n
-    cov_c = (s2 - n * torch.outer(mean_c, mean_c)) / (n - 1.0)
-    return mean_c.float(), cov_c.float()
+    rounded once. Runs under the span tile_pass1."""
+    with span("tile_pass1"):
+        acc = _zero_moments(cfg.latent_channels, content.device)
+        for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", content.device):
+            acc = _moments_chunk(weights, content, y0s, x0s, acc, owns, cfg,
+                                 g.th, g.tw, fast)
+        n, s1, s2 = acc
+        mean_c = s1 / n
+        cov_c = (s2 - n * torch.outer(mean_c, mean_c)) / (n - 1.0)
+        return mean_c.float(), cov_c.float()
 
 
 def _canvases(h, w, device):
@@ -313,12 +316,14 @@ def _canvases(h, w, device):
 
 
 def _global_pass(g, weights, content, t, b, cfg, fast, tile_batch):
-    """Pass 2 of the global modes: (1, H, W, 3) blended output."""
-    out, wsum = _canvases(g.h, g.w, content.device)
-    for y0s, x0s, _, wts in g.chunks(tile_batch, "wt", content.device):
-        out, wsum = _stylize_chunk(weights, content, y0s, x0s, wts, t, b,
-                                   out, wsum, cfg, g.th, g.tw, fast)
-    return (out / wsum)[None]
+    """Pass 2 of the global modes: (1, H, W, 3) blended output. Runs under
+    the span tile_pass2."""
+    with span("tile_pass2"):
+        out, wsum = _canvases(g.h, g.w, content.device)
+        for y0s, x0s, _, wts in g.chunks(tile_batch, "wt", content.device):
+            out, wsum = _stylize_chunk(weights, content, y0s, x0s, wts, t, b,
+                                       out, wsum, cfg, g.th, g.tw, fast)
+        return (out / wsum)[None]
 
 
 @torch.no_grad()
@@ -388,23 +393,26 @@ def stylize_tiled_masked(net, content, style, cmask, smask,
     ns, mean_s, cov_s = cwct.stats_from_moments(*style_moments,
                                                 dtype=torch.float32)
 
-    # the tile batches' moments add up in the style moments' dtype
-    acc = tuple(torch.zeros_like(a) for a in style_moments)
-    for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", dev):
-        acc = _moments_chunk_masked(weights, content, y0s, x0s, acc, owns,
-                                    cm_lat, labels, cfg, g.th, g.tw, sc,
-                                    fast)
-    nc, mean_c, cov_c = cwct.stats_from_moments(*acc, dtype=torch.float32)
+    with span("tile_pass1"):
+        # the tile batches' moments add up in the style moments' dtype
+        acc = tuple(torch.zeros_like(a) for a in style_moments)
+        for y0s, x0s, owns, _ in g.chunks(tile_batch, "own", dev):
+            acc = _moments_chunk_masked(weights, content, y0s, x0s, acc,
+                                        owns, cm_lat, labels, cfg, g.th,
+                                        g.tw, sc, fast)
+        nc, mean_c, cov_c = cwct.stats_from_moments(*acc,
+                                                    dtype=torch.float32)
     ts, bs, valids = cwct.region_transforms(
         labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
         float(min_pixels), max_ratio)
 
-    out, wsum = _canvases(h, w, dev)
-    for y0s, x0s, _, wts in g.chunks(tile_batch, "wt", dev):
-        out, wsum = _stylize_chunk_masked(
-            weights, content, y0s, x0s, wts, cm_lat, labels, (ts, bs),
-            valids, out, wsum, cfg, g.th, g.tw, sc, fast)
-    return (out / wsum)[None]
+    with span("tile_pass2"):
+        out, wsum = _canvases(h, w, dev)
+        for y0s, x0s, _, wts in g.chunks(tile_batch, "wt", dev):
+            out, wsum = _stylize_chunk_masked(
+                weights, content, y0s, x0s, wts, cm_lat, labels, (ts, bs),
+                valids, out, wsum, cfg, g.th, g.tw, sc, fast)
+        return (out / wsum)[None]
 
 
 @torch.no_grad()

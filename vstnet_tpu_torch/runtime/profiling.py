@@ -2,15 +2,25 @@
 
 Counterpart of vstnet_tpu/runtime/profiling.py:
 
+  * `span(name)`: a host range named "vst.<name>" around a stage of the
+    port's programs (the video programs' segment, remap, encode, cWCT and
+    decode, the tiler's two passes, the service's device section and reply
+    encodes). It records only while a profiler records on the calling
+    thread (`torch.profiler.profile`, or `torch.autograd.profiler.
+    emit_nvtx`, which makes it an NVTX range), and never while torch.compile
+    or torch.export traces; otherwise it is one shared nullcontext, a flag
+    test and no dispatcher call. Its ranges lie in the same Chrome trace as
+    the device's events, on the same clock.
   * `trace(logdir)`: a torch.profiler capture of the host and, where there
     is one, the CUDA device, written under `logdir` as a Chrome/TensorBoard
-    trace (`*.pt.trace.json`, viewable in Perfetto or TensorBoard). CUPTI
-    records every kernel by its CUDA name, the port's own kernels (launched
-    through ctypes) included.
+    trace (`*.pt.trace.json`, viewable in Perfetto or TensorBoard), the
+    block inside the span "vst.traced". CUPTI records every kernel by its
+    CUDA name, the port's own kernels (launched through ctypes) included.
   * `kernel_counts(logdir)` and `summarize_trace(logdir)`: the reader of
     those traces: the device kernels by name, and by total time beside the
-    device's busy and idle share of the window from its first to its last
-    device event.
+    device's busy and idle share of the "vst.traced" window, and each
+    span's calls, host time and the device time of the work launched
+    inside it.
   * `device_memory_stats()`: live numbers of the CUDA caching allocator
     under the JAX package's keys; None on the CPU.
   * `call_memory_analysis(fn, *args)`: the memory of one call. PyTorch has
@@ -22,6 +32,7 @@ Counterpart of vstnet_tpu/runtime/profiling.py:
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import json
@@ -30,6 +41,22 @@ from typing import Dict, List, Optional
 
 import torch
 from torch.utils._pytree import tree_leaves
+
+
+SPAN_PREFIX = "vst."
+WINDOW = "traced"     # trace()'s outermost span: the summary's window
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The host range "vst.<name>" while a profiler records on this thread;
+    the shared nullcontext otherwise, and while torch.compile or
+    torch.export traces (a range would enter their graphs). The compiler
+    tests come first: torch.compile cannot trace the profiler's flag."""
+    if (torch.compiler.is_compiling() or torch.compiler.is_exporting()
+            or not torch._C._autograd._profiler_enabled()):
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -45,7 +72,11 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(
                      logdir)):
-        yield
+        with span(WINDOW):
+            yield
+            if ProfilerActivity.CUDA in activities:
+                # the block's device work ends inside the window
+                torch.cuda.synchronize()
 
 
 # the trace's categories of work on the device
@@ -62,12 +93,20 @@ def trace_files(logdir: str) -> List[str]:
     return files
 
 
-def device_events(path: str) -> List[dict]:
-    """The complete ("X") device events of one Chrome trace."""
+def _events(path: str) -> List[dict]:
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
+        return json.load(f)["traceEvents"]
+
+
+def _device(events) -> List[dict]:
+    """The complete ("X") device events among a trace's events."""
     return [e for e in events
             if e.get("cat") in DEVICE_EVENT_CATS and e.get("ph") == "X"]
+
+
+def device_events(path: str) -> List[dict]:
+    """The complete ("X") device events of one Chrome trace."""
+    return _device(_events(path))
 
 
 def kernel_counts(logdir: str) -> collections.Counter:
@@ -77,41 +116,97 @@ def kernel_counts(logdir: str) -> collections.Counter:
         for e in device_events(path) if e["cat"] == "kernel")
 
 
-def _busy_us(events) -> float:
-    """Microseconds covered by the union of the events' intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
+def _union(intervals) -> List[List[float]]:
+    """Sorted, merged [start, end) intervals."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _busy_us(events, t0=float("-inf"), t1=float("inf")) -> float:
+    """Microseconds of [t0, t1] covered by the union of the events'
+    intervals."""
+    return sum(b - a for a, b in _union(
+        [max(e["ts"], t0), min(e["ts"] + e["dur"], t1)] for e in events
+        if e["ts"] + e["dur"] > t0 and e["ts"] < t1))
+
+
+def _spans(events) -> Dict[str, List[List[float]]]:
+    """{name without the prefix: [[start, end]] of each call} of the
+    trace's vst.* host spans."""
+    out = collections.defaultdict(list)
+    for e in events:
+        name = str(e.get("name", ""))
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and name.startswith(SPAN_PREFIX)):
+            out[name[len(SPAN_PREFIX):]].append(
+                [float(e["ts"]), float(e["ts"]) + float(e["dur"])])
+    return out
+
+
+def _launched_in(device, launches, intervals) -> List[dict]:
+    """The device events whose launching host call (launches: {correlation
+    id: start} of the cuda_runtime and cuda_driver events) starts inside
+    one of the intervals."""
+    merged = _union(intervals)
+    heads = [a for a, _ in merged]
+    out = []
+    for e in device:
+        t = launches.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        i = bisect.bisect_right(heads, t) - 1
+        if i >= 0 and t <= merged[i][1]:
+            out.append(e)
+    return out
 
 
 def summarize_trace(logdir: str, top: int = 20) -> str:
-    """Each trace under `logdir`: its device events' window, busy time and
-    idle share, and the `top` kernels (and copies) by total time."""
+    """Each trace under `logdir`: the device's busy time and idle share of
+    the window (the longest vst.traced span, which trace() opens; in a
+    trace without one, the device events' first to last microsecond), the
+    `top` kernels (and copies) by total time, and each vst.* span's calls,
+    host ms and the device ms of the work launched inside it."""
     lines = []
     for path in trace_files(logdir):
-        events = device_events(path)
+        events = _events(path)
+        device = _device(events)
         name = os.path.basename(path)
-        if not events:
+        if not device:
             lines.append(f"  {name}: no device events")
             continue
+        spans = _spans(events)
+        if spans.get(WINDOW):
+            t0, t1 = max(spans.pop(WINDOW), key=lambda ab: ab[1] - ab[0])
+        else:
+            t0 = min(e["ts"] for e in device)
+            t1 = max(e["ts"] + e["dur"] for e in device)
+        busy = _busy_us(device, t0, t1)
         by_name = collections.defaultdict(lambda: [0, 0.0])
-        for e in events:
+        for e in device:
             by_name[e["name"]][0] += 1
             by_name[e["name"]][1] += e["dur"]
-        window = (max(e["ts"] + e["dur"] for e in events)
-                  - min(e["ts"] for e in events))
-        busy = _busy_us(events)
         total = sum(d for _, d in by_name.values())
-        lines.append(f"  {name}: {len(events)} device events, window "
+        window = t1 - t0
+        lines.append(f"  {name}: {len(device)} device events, window "
                      f"{window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle "
                      f"{100 * (1 - busy / window):.1f} %")
         for kname, (n, dur) in sorted(by_name.items(),
                                       key=lambda kv: -kv[1][1])[:top]:
             lines.append(f"    {dur / 1e3:10.3f} ms {100 * dur / total:5.1f} "
                          f"% {n:6d}x  {kname[:110]}")
+        launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "correlation" in e.get("args", {})}
+        for sname, calls in sorted(spans.items()):
+            dev = _busy_us(_launched_in(device, launches, calls))
+            host = sum(b - a for a, b in calls)
+            lines.append(f"    span {SPAN_PREFIX}{sname}: {len(calls)}x, host "
+                         f"{host / 1e3:.3f} ms, device {dev / 1e3:.3f} ms")
     return "\n".join(lines)
 
 

@@ -27,7 +27,11 @@ Only the worker and style registration touch the devices, each under one
 lock, so a registration never interleaves with a batch; HTTP handler
 threads decode the request images on the host, and the worker encodes the
 replies. `batch_log` keeps, for each recent batch, the worker's host clock
-around its device section and its reply encodes. The model's device decides
+around its device section and its reply encodes, and `/healthz` reports
+the encodes' share of the two over the log. Built with `trace_dir`, the
+worker runs inside runtime/profiling.trace(trace_dir), where the two
+sections are the spans vst.serve_device and vst.serve_reply_encode, and
+the trace is written when close() stops it. The model's device decides
 where the styles are encoded (StyleModel's constructors put it on the CUDA
 card unless given device="cpu"). A failure in a batch (a kernel's included)
 is reported to each of its requests and never stops the worker: there is no
@@ -43,7 +47,8 @@ the same whichever shard it lands in.
 
 Endpoints:
   GET  /healthz               -> JSON {status, mode, fast, styles, device,
-                                       devices, sharded, max_batch}
+                                       devices, sharded, max_batch,
+                                       reply_encode_share}
   PUT  /styles/<name>         -> register a style (body: image bytes);
                                  POST is accepted too
   POST /stylize?style=<name>  -> the stylized PNG (body: content image
@@ -74,6 +79,7 @@ from vstnet_tpu_torch.models import revresnet_fast as rf
 from vstnet_tpu_torch.parallel.mesh import make_mesh
 from vstnet_tpu_torch.parallel.sharding import gather, map_shards, replicate
 from vstnet_tpu_torch.runtime.buckets import bucket_hw
+from vstnet_tpu_torch.runtime.profiling import span, trace
 
 
 def _decode_image(data: bytes, max_size: Optional[int], down_scale: int):
@@ -116,12 +122,15 @@ class StyleService:
     """Model + registered styles + the coalescing batch worker. Builds
     nothing itself: it runs where `model.net` lies, and on every visible
     card when that is a card (`devices`, a mesh of parallel/mesh.py,
-    overrides it). `close()` stops the worker."""
+    overrides it). `close()` stops the worker. With `trace_dir`, the
+    worker's whole life is one profiling.trace under that directory."""
 
     def __init__(self, model, fast: bool = False, grid: int = 64,
                  max_size: int = 1280, max_batch: int = 8,
-                 batch_window_ms: float = 5.0, devices=None):
+                 batch_window_ms: float = 5.0, devices=None,
+                 trace_dir: Optional[str] = None):
         self.model = model
+        self.trace_dir = trace_dir
         self.fast = fast
         self.grid = grid
         self.max_size = max_size
@@ -182,6 +191,15 @@ class StyleService:
         with self._styles_lock:
             self.styles[name] = (ls, mu)
             self._replicas[name] = factors
+
+    def reply_encode_share(self) -> Optional[float]:
+        """The reply encodes' seconds over the device sections' and the
+        encodes' seconds, summed over batch_log; None before the first
+        batch."""
+        log = tuple(self.batch_log)
+        dev = sum(e[3] for e in log)
+        enc = sum(e[4] for e in log)
+        return enc / (dev + enc) if log else None
 
     def style_names(self):
         with self._styles_lock:
@@ -278,6 +296,12 @@ class StyleService:
     def _run(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        # a profiler records the spans of its own thread only
+        with (trace(self.trace_dir) if self.trace_dir
+              else contextlib.nullcontext()):
+            self._serve_batches()
+
+    def _serve_batches(self):
         stash = None
         while True:
             batch, stash = self._drain_batch(stash)
@@ -297,15 +321,16 @@ class StyleService:
                     [j.content for j in batch]
                     + [batch[0].content] * (n_pad - n), axis=0)
                 t0 = time.perf_counter()
-                with self._device_lock:
+                with span("serve_device"), self._device_lock:
                     x = torch.from_numpy(frames).to(self.devices[0])
                     out = self._stylize_batch(x, batch[0].key[2]).cpu()
                 t1 = time.perf_counter()
                 out = out.numpy()
-                for i, j in enumerate(batch):
-                    h, w = j.hw
-                    j.result = _encode_png(out[i, :h, :w])
-                    j.done.set()
+                with span("serve_reply_encode"):
+                    for i, j in enumerate(batch):
+                        h, w = j.hw
+                        j.result = _encode_png(out[i, :h, :w])
+                        j.done.set()
                 t2 = time.perf_counter()
                 self.batch_log.append((t2, n, n_pad, t1 - t0, t2 - t1))
             except Exception as e:  # report, never kill the worker
@@ -342,6 +367,7 @@ def make_handler(service: StyleService):
                     "devices": len(service.devices),
                     "sharded": len(service.devices) > 1,
                     "max_batch": service.max_batch,
+                    "reply_encode_share": service.reply_encode_share(),
                 }
                 self._reply(200, json.dumps(info).encode())
             else:
