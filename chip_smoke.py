@@ -59,7 +59,8 @@ order; any failure raises and the process exits non-zero:
   5. masked   Segmenter.load(None) (B4 depths) -> prepare_masked_style ->
               make_masked_fused_video_fn(out_u8=True, seg_half=True) on 2
               batches of 4 frames, with launch counts per batch (K1 60,
-              and K2 4, all on the tensor cores, K4 3, K5 41) and the gates:
+              and K2 4, all on the tensor cores, K4 3, K5 41, each regional
+              cWCT kernel 1) and the gates:
               kernel-route logits against the plain bf16 route's, mask
               agreement on the pixels the plain route decides by more than
               a bf16 ulp, bf16 kernel route against the float32 plain route
@@ -87,6 +88,16 @@ order; any failure raises and the process exits non-zero:
               against torch.bincount; for the record, outside the kernels
               line, K1-K5 at the tiler's, the smoke CLI's photo test's and
               the service's shapes.
+     regions  (after the timings) the regional cWCT's two kernels
+              (csrc/regions.cu) against their plain loops in bf16 at the
+              auto-seg cell's batch (8 x 1280x720, C=32, K=16) and the 4K
+              tiler's tile batch (4 x 1024x1024 as one frame of rows,
+              K=32): the moments bit-equal twice over, counts equal, sums
+              and Gram within 1e-12 of the plain float64 sums' max, the
+              apply within 2 bf16 ulps of its scale; kernel, plain and
+              bound ms of each; transfer_masked_factored on the auto-seg
+              batch with the kernels and with the plain loops, and its
+              launches (one of each kernel).
   7. cli      (run after phase 5; phases 7-11 before the timings) the
               command-line entry points as a user runs them, on synthetic
               files: the video CLI on a 16-frame 1280x720 MJPEG clip,
@@ -247,8 +258,8 @@ order; any failure raises and the process exits non-zero:
               kernel of the port launched.
 
 Before the kernels' line, `phase seconds: build ..., spatial train ...,
-timings ..., programs ..., total T of 1200` gives each phase's wall
-seconds. The last two lines of output are the kernels' JSON record and
+timings ..., regions ..., programs ..., total T of 1200` gives each
+phase's wall seconds. The last two lines of output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Imports neither jax nor vstnet_tpu.
 """
 
@@ -406,7 +417,14 @@ KERNELS = {
                   "vstnet_tpu/ops/attention.py:62"),
     "dwconv_gelu": ("vstnet_tpu_torch/csrc/dwconv.cu",
                     "vstnet_tpu/ops/dwconv.py:112"),
+    # no TPU kernel: the JAX package's one-hot scans, left to XLA
+    "region_moments": ("vstnet_tpu_torch/csrc/regions.cu", "none"),
+    "region_apply": ("vstnet_tpu_torch/csrc/regions.cu", "none"),
 }
+# the regional cWCT's launches: one of each kernel a regional transfer
+# of a batch (the moments once more for a style, twice for
+# transfer_masked's content and style)
+REGION_ONCE = {"region_moments": 1, "region_apply": 1}
 
 
 def _require_card():
@@ -1006,7 +1024,8 @@ def phase_masked(ops, model, seg, style, device, gen, total):
 
     want = {"coupling": 0, "coupling_mma": 60, "transition": 0,
             "transition_mma": 4, "transition_half": 0,
-            "transition_half_mma": 0, "attention": 3, "dwconv_gelu": 41}
+            "transition_half_mma": 0, "attention": 3, "dwconv_gelu": 41,
+            **REGION_ONCE}
     ops.reset_launch_counts()
     outs = [run(video, frames, want, "masked 512x512") for frames in batches]
     torch.cuda.synchronize()
@@ -1523,6 +1542,153 @@ def phase_programs(model, style, seg, region, plan, device, gen, batch=8):
 
 
 # ---------------------------------------------------------------------------
+# The regional cWCT's kernels (phase "regions", after the timings)
+# ---------------------------------------------------------------------------
+
+# (what, frames, H, W, capacity K) of the regional kernels' rows: the
+# auto-seg cell's batch (8 frames of 1280x720, the full-res 32-channel
+# latent) and the 4K tiler's tile batch (4 tiles of 1024x1024 summed as
+# one frame of rows)
+REGION_SHAPES = (("auto-seg batch", 8, 720, 1280, 16),
+                 ("tiler tile batch", 1, 4 * 1024, 1024, 32))
+# the kernel's float64 moments against the plain loops' float64 sums, of
+# the largest of them; the apply within BF16_ULPS of the output's scale
+REGION_MOMENTS_TOL = 1e-12
+# dense float64 on the tensor cores (NVIDIA's data sheet, H100 SXM)
+PEAK_F64 = 67e12
+
+
+def bound_region_moments(b, rows, c, k):
+    """x (bf16) and its int32 labels read, the float64 moments written;
+    the upper triangle's and the sums' multiply-adds in float64."""
+    return _bound(rows * (2.0 * c + 4) + b * k * (c * c + c + 1) * 8.0,
+                  2.0 * rows * (c * (c + 1) // 2 + c), PEAK_F64)
+
+
+def bound_region_apply(b, rows, c, k):
+    """x and its labels read, y written in bf16, the frames' transforms
+    read; C * C multiply-adds a row in float32."""
+    return _bound(rows * (4.0 * c + 4) + b * k * (c * c + c + 1) * 4.0,
+                  2.0 * rows * c * c, PEAK_F32)
+
+
+def _region_batch(gen, b, h, w, k, device, c=32, cell=40):
+    """bf16 rows (b, h*w, c) of a skewed latent, label maps (b, h*w) of
+    cell x cell blocks over k - 2 labels, the table (k,) with two -1 pad
+    slots, and each frame's transforms T = I + noise, b, all valid."""
+    mix = torch.randn((c, c), generator=gen) / math.sqrt(c)
+    x = (torch.randn((b * h * w, c), generator=gen) @ mix).to(
+        device, torch.bfloat16).reshape(b, h * w, c)
+    cells = torch.randint(0, k - 2, (b, -(-h // cell), -(-w // cell)),
+                          generator=gen)
+    m = cells.repeat_interleave(cell, 1).repeat_interleave(cell, 2)
+    m = m[:, :h, :w].reshape(b, -1).to(device, torch.int32)
+    labels = torch.cat([torch.arange(k - 2, dtype=torch.int32),
+                        torch.full((2,), -1, dtype=torch.int32)]).to(device)
+    ts = (torch.eye(c) + 0.1 * torch.randn((b, k, c, c), generator=gen)).to(
+        device)
+    bs = torch.randn((b, k, c), generator=gen).to(device)
+    return x, m, labels, ts, bs, (labels >= 0).expand(b, k).contiguous()
+
+
+def phase_regions(ops, device, gen):
+    """The regional cWCT's two kernels against their plain loops at
+    REGION_SHAPES in bf16: the moments equal twice over bit for bit, their
+    counts equal the plain loops', sums and Gram within REGION_MOMENTS_TOL
+    of the plain float64 sums' max; the apply within BF16_ULPS of the
+    output's scale; then kernel, plain and bound ms of each (CUDA events,
+    plain, kernel, kernel, plain), and transfer_masked_factored on the
+    auto-seg batch with the kernels and with the plain loops, with its
+    launches. Returns ({kernel: the largest error}, {kernel: the auto-seg
+    batch's ms, plain_ms, bound_ms, bound_by, library_ms})."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.ops import regions
+
+    worst = {"region_moments": 0.0, "region_apply": 0.0}
+    rec = {}
+    for what, b, h, w, k in REGION_SHAPES:
+        x, m, labels, ts, bs, ok = _region_batch(gen, b, h, w, k, device)
+        rows, c = b * h * w, x.shape[-1]
+        got = regions.region_moments(x, m, labels)
+        again = regions.region_moments(x, m, labels)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"region_moments {what}: two runs differ")
+        err = 0.0
+        for i in range(b):
+            want = cwct.region_moments_plain(x[i], m[i], labels)
+            if not torch.equal(got[0][i], want[0]):
+                raise AssertionError(f"region_moments {what}: counts differ")
+            err = max(err, *(float((g[i] - v).abs().max() / v.abs().max())
+                             for g, v in zip(got[1:], want[1:])))
+        y = regions.apply_regions(x, m, labels, ts, bs, ok)
+        y_plain = torch.stack([cwct.apply_regions_plain(
+            x[i], m[i], labels, ts[i], bs[i], ok[i]) for i in range(b)])
+        err_a = _max_err(y, y_plain)
+        tol_a = _bf16_tol(y_plain)
+        print(f"gate region_moments {what} C={c} K={k} B={b} {h}x{w} bf16: "
+              f"two runs equal bit for bit, counts equal the plain loops', "
+              f"sums and Gram {err:.3e} of the plain float64 sums' max "
+              f"(<= {REGION_MOMENTS_TOL}); region_apply max abs err "
+              f"{err_a:.3e} (<= {tol_a:.3e}, {BF16_ULPS} bf16 ulps of the "
+              f"scale)")
+        if not (err <= REGION_MOMENTS_TOL and err_a <= tol_a):
+            raise AssertionError(f"regional kernels {what} off the plain "
+                                 f"loops: {err}, {err_a}")
+        worst["region_moments"] = max(worst["region_moments"], err)
+        worst["region_apply"] = max(worst["region_apply"], err_a)
+
+        def plain_moments():
+            return [cwct.region_moments_plain(x[i], m[i], labels)
+                    for i in range(b)]
+
+        def plain_apply():
+            return [cwct.apply_regions_plain(x[i], m[i], labels, ts[i],
+                                             bs[i], ok[i]) for i in range(b)]
+
+        for kernel, fn, plain, bound in (
+                ("region_moments",
+                 lambda: regions.region_moments(x, m, labels), plain_moments,
+                 bound_region_moments(b, rows, c, k)),
+                ("region_apply",
+                 lambda: regions.apply_regions(x, m, labels, ts, bs, ok),
+                 plain_apply, bound_region_apply(b, rows, c, k))):
+            p0 = _time_ms(plain, iters=2, warmup=1)
+            tk = min(_time_ms(fn, iters=20), _time_ms(fn, iters=20))
+            tp = min(p0, _time_ms(plain, iters=2, warmup=1))
+            _line(kernel, what, f"C={c} K={k} B={b} {h}x{w}", tk, tp, bound)
+            if b == REGION_SHAPES[0][1]:
+                rec[kernel] = {"ms": tk, "plain_ms": tp, "bound_ms": bound[0],
+                               "bound_by": bound[1], "library_ms": None}
+
+    # the masked program's regional stage on the auto-seg batch
+    _, b, h, w, k = REGION_SHAPES[0]
+    x, m, labels, _, _, _ = _region_batch(gen, b, h, w, k, device)
+    style = cwct.style_region_factors(x[:1].reshape(1, h, w, -1),
+                                      m[:1].reshape(1, h, w), k)
+    feat, mask = x.reshape(b, h, w, -1), m.reshape(b, h, w)
+
+    def stage():
+        return cwct.transfer_masked_factored(feat, mask, *style)
+
+    ops.reset_launch_counts()
+    stage()
+    counts = _nonzero(ops.launch_counts())
+    tk = _time_ms(stage, iters=10)
+    saved = regions.takes
+    regions.takes = lambda x: False
+    try:
+        tp = _time_ms(stage, iters=2, warmup=1)
+    finally:
+        regions.takes = saved
+    print(f"time regional cWCT (transfer_masked_factored) auto-seg batch "
+          f"C=32 K={k} B={b} {h}x{w} bf16: kernels {tk:.3f} ms, plain loops "
+          f"{tp:.3f} ms; launches of the kernels {counts}")
+    if counts != REGION_ONCE:
+        raise AssertionError(f"regional cWCT launches {counts}")
+    return worst, rec
+
+
+# ---------------------------------------------------------------------------
 # The regional cWCT against float64 (phases 6 and 8; the card test
 # tests/test_torch_cuda.py::test_region_statistics_on_card_match_float64)
 # ---------------------------------------------------------------------------
@@ -1961,9 +2127,10 @@ def _check_video_calls(ops, probe, clip, size, written, seg_calls=None):
         if not torch.equal(ref_in, x):
             raise AssertionError(f"{clip} batch at {lo}: input frames differ "
                                  f"from the clip's")
-        if call["launches"] != want:
+        want_call = dict(want, **REGION_ONCE) if masked else want
+        if call["launches"] != want_call:
             raise AssertionError(f"{clip} batch at {lo}: launches "
-                                 f"{call['launches']}, want {want}")
+                                 f"{call['launches']}, want {want_call}")
         fa, fkw = call["make"]
         again = call["factory"](*fa, **fkw)(*call["args"])
         frames = again[0] if masked else again
@@ -2282,7 +2449,8 @@ class _UltraProbe:
             end.record()
             after = self.ops.launch_counts()
             self.calls.append({
-                "pass": pass_no, "events": (start, end),
+                "pass": pass_no, "masked": fn.__name__.endswith("_masked"),
+                "events": (start, end),
                 "launches": {k: v - before[k] for k, v in after.items()
                              if v != before[k]}})
             return out
@@ -2295,12 +2463,16 @@ class _UltraProbe:
 
     def check(self, what, fast):
         """Each tile batch made the launches of its pass (none on the
-        float32 route); returns the batch count of each pass."""
+        float32 route) and, in a regional pass, one of that pass's
+        regional kernel (on both routes); returns the batch count of each
+        pass."""
         n = {p: sum(c["pass"] == p for c in self.calls) for p in (1, 2)}
         if n[1] != n[2] or not n[1]:
             raise AssertionError(f"ultra {what}: tile batches {n}")
         for c in self.calls:
-            want = ULTRA_PER_CHUNK[c["pass"]] if fast else {}
+            want = dict(ULTRA_PER_CHUNK[c["pass"]]) if fast else {}
+            if c["masked"]:       # both routes: the regional kernels
+                want[("region_moments", "region_apply")[c["pass"] - 1]] = 1
             if c["launches"] != want:
                 raise AssertionError(f"ultra {what}: a pass-{c['pass']} "
                                      f"batch launched {c['launches']}, "
@@ -2491,6 +2663,9 @@ def phase_ultra(ops, model, device, gen, total, smi):
                            + styles * ULTRA_STYLE_ENCODE[k])
             for k, v in ULTRA_SEG_CALL.items():
                 want[k] = seg_calls * v
+        if any(c["masked"] for c in probe.calls):
+            # the style's moments and each tile batch's, each batch's apply
+            want.update(region_moments=1 + n[1], region_apply=n[2])
         got_counts = {k: v for k, v in counts.items() if v}
         if got_counts != {k: v for k, v in want.items() if v}:
             raise AssertionError(f"ultra CLI {tag}: launches {counts}, "
@@ -3316,7 +3491,8 @@ GGUF_F16_PSNR = 40.0
 # 30 K1 and 2 K2 each (half-res widths 256 and 128)
 GGUF_LAUNCHES = {"coupling": 0, "coupling_mma": 90, "transition": 0,
                  "transition_mma": 6, "transition_half": 0,
-                 "transition_half_mma": 0, "attention": 0, "dwconv_gelu": 0}
+                 "transition_half_mma": 0, "attention": 0, "dwconv_gelu": 0,
+                 "region_moments": 0, "region_apply": 0}
 # the smoke photo path at 1024x1024 (fast route: bf16 segmenter, fused
 # encode and decode) launches K1, K2, K4 and K5; the profiler names each
 # by its __global__ function, templates with their arguments after it
@@ -5012,6 +5188,10 @@ def main():
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
     rec = phases.run("timings", phase_timings, cf, att, dw, device, gen)
+    region_worst, region_rec = phases.run("regions", phase_regions, ops,
+                                          device, gen)
+    worst.update(region_worst)
+    rec.update(region_rec)
     phases.run("programs", phase_programs, model, style, seg, region, plan,
                device, gen)
     print(phases.line())
@@ -5035,10 +5215,14 @@ def main():
           "the float32 route's kernels, 30, 2 and 2 in float32 at the same "
           "sizes) or of one segment call at 512x512 B=8 in bf16 "
           "(attention 3, dwconv_gelu 41; dwconv_gelu's ms by CUDA-graph "
-          "replay, the others' eagerly); bound_ms sums each launch's "
+          "replay, the others' eagerly) or of one call at the auto-seg "
+          "cell's batch, 8 x 1280x720, C=32, K=16 (region_moments, "
+          "region_apply); bound_ms sums each launch's "
           "bound and bound_by names the kind that holds the larger share; "
           "max_abs_err is the largest kernel-vs-plain error of phase 3, in "
-          "bf16 (coupling, transition, transition_half: in float32)")
+          "bf16 (coupling, transition, transition_half: in float32; "
+          "region_moments: the phase regions' largest distance of the "
+          "plain float64 sums' max, region_apply its abs err)")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ The attention kernel (K4) rounds its probabilities to bf16 before P.V, so
 a probability near a rounding boundary may flip; with M keys of weight
 <= 1/M each that moves the output by far less than one bf16 ulp of its
 scale, and 2 ulps are allowed. The depthwise conv + GELU kernel (K5)
-rounds once: 1 bf16 ulp of the output's scale.
+rounds once: 1 bf16 ulp of the output's scale. The regional moments
+kernel sums exact products in float64 in another order than the plain
+loops: within 1e-12 of the plain float64 sums' max; the regional apply
+sums in float32 in another order and rounds once: 2 ulps of the latent's
+dtype at the output's scale.
 """
 
 import numpy as np
@@ -752,6 +756,150 @@ def test_cwct_statistics_on_card_match_float64(dev):
     assert rel(got, cwct.transfer(zc, zs)) <= 2e-5
 
 
+def _region_rows(gen, b, n, c, k, dt, dev):
+    """Rows (b, n, c) of a skewed latent in dt and their labels (b, n) in
+    runs of 1-96 rows, on dev, with a label table of k slots: the sorted
+    real labels, then -1 pads (three at k = 8). The last real label lies in
+    no frame (an empty region), the one before it on one row a frame (a
+    single pixel); runs of -2 (in no slot) lie between the others, one in
+    the middle of every frame."""
+    real = np.sort(gen.choice(150, size=max(2, k - 3), replace=False))
+    table = np.concatenate([real, -np.ones(k - real.size, np.int64)])
+    pool = np.concatenate([real[:-2], [-2]]) if real.size > 2 else [-2]
+    m = np.empty((b, n), np.int32)
+    for i in range(b):
+        pos = 0
+        while pos < n:
+            run = int(gen.integers(1, 97))
+            m[i, pos:pos + run] = gen.choice(pool)
+            pos += run
+        m[i, n // 2:n // 2 + 40] = -2
+        m[i, gen.integers(n)] = real[-2]
+    mix = gen.standard_normal((c, c)) / np.sqrt(c)
+    x = gen.standard_normal((b, n, c)) @ mix + gen.standard_normal(c)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev, dt),
+            torch.from_numpy(m).to(dev),
+            torch.from_numpy(table.astype(np.int32)).to(dev))
+
+
+def _region_cases():
+    cases = [(32, k, dt, rows) for k in (8, 16, 32, 150)
+             for dt in (torch.bfloat16, torch.float32) for rows in (None, 32)]
+    return cases + [(128, k, dt, None) for k in (8, 32)
+                    for dt in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("c,k,dt,rows", _region_cases())
+def test_region_moments_kernel_matches_plain(dev, gen, c, k, dt, rows):
+    """ops.regions.region_moments on a batch of 3 frames against
+    cwct.region_moments_plain (float64 on the card) frame by frame: counts
+    equal, sums and Gram within 1e-12 of the plain sums' max; an empty and
+    a single-pixel region, -1 pad slots, rows labelled -2; rows=32 cuts a
+    frame into chunks of one tile, so runs cross chunks. Two runs give the
+    same bits, and the Gram is symmetric bit for bit."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.ops import regions
+
+    x, m, labels = _region_rows(gen, 3, 5000, c, k, dt, dev)
+    got = regions.region_moments(x, m, labels, rows=rows)
+    again = regions.region_moments(x, m, labels, rows=rows)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+    assert torch.equal(got[2], got[2].transpose(-1, -2))
+    for i in range(3):
+        want = cwct.region_moments_plain(x[i], m[i], labels)
+        assert want[0].dtype == torch.float64
+        assert torch.equal(got[0][i], want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert _err(g[i], w) <= 1e-12 * float(w.abs().max())
+    real = int((labels >= 0).sum())
+    for cnt in got[0]:
+        assert float(cnt[real - 1]) == 0.0                  # empty region
+        assert float(cnt[real - 2]) == 1.0                  # single pixel
+        assert not cnt[labels < 0].any()
+
+
+@pytest.mark.parametrize("c,k,dt,rows", _region_cases())
+def test_region_apply_kernel_matches_plain(dev, gen, c, k, dt, rows):
+    """ops.regions.apply_regions on a batch of 3 frames, each with its own
+    transforms and a slot marked invalid, against cwct.apply_regions_plain
+    frame by frame: within 2 ulps of x's dtype at the output's scale, and
+    rows with no valid slot (the invalid region, -2, pads) equal to x."""
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.ops import regions
+
+    x, m, labels = _region_rows(gen, 3, 5000, c, k, dt, dev)
+    ts = torch.from_numpy((gen.standard_normal((3, k, c, c)) / np.sqrt(c))
+                          .astype(np.float32)).to(dev)
+    bs = torch.from_numpy(gen.standard_normal((3, k, c)).astype(
+        np.float32)).to(dev)
+    valids = (labels >= 0).expand(3, k).clone()
+    valids[:, 0] = False
+    got = regions.apply_regions(x, m, labels, ts, bs, valids, rows=rows)
+    assert got.dtype == dt
+    ulp = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -23
+    for i in range(3):
+        want = cwct.apply_regions_plain(x[i], m[i], labels, ts[i], bs[i],
+                                        valids[i])
+        scale = float(want.float().abs().max())
+        assert _err(got[i], want) <= 2 * ulp * 2.0 ** np.floor(np.log2(scale))
+        keep = ~((m[i, :, None] == labels) & valids[i]).any(dim=1)
+        assert keep.any() and torch.equal(got[i][keep], x[i][keep])
+
+
+def test_region_kernels_take_a_label_table_a_frame(dev, gen):
+    """labels (B, K), one table a frame (transfer_masked's): each frame's
+    moments and apply equal those with its own table alone."""
+    from vstnet_tpu_torch.ops import regions
+
+    x, m, labels = _region_rows(gen, 2, 3000, 32, 16, torch.bfloat16, dev)
+    table = torch.stack([labels, labels.roll(3)])
+    ts = torch.randn((2, 16, 32, 32), device=dev) / 6
+    bs = torch.randn((2, 16, 32), device=dev)
+    valids = table >= 0
+    got = regions.region_moments(x, m, table)
+    out = regions.apply_regions(x, m, table, ts, bs, valids)
+    for i in range(2):
+        one = regions.region_moments(x[i:i + 1], m[i:i + 1], table[i])
+        for g, w in zip(got, one):
+            assert torch.equal(g[i], w[0])
+        assert torch.equal(out[i], regions.apply_regions(
+            x[i:i + 1], m[i:i + 1], table[i], ts[i:i + 1], bs[i:i + 1],
+            valids[i:i + 1])[0])
+
+
+def test_masked_transfer_on_card_launches_each_kernel_once(dev, gen,
+                                                          monkeypatch):
+    """transfer_masked_factored on a bf16 batch of 8 frames: one launch of
+    each regional kernel whatever K is, and the output within 2 bf16 ulps
+    of its scale of the plain loops' (regions.takes False)."""
+    from vstnet_tpu_torch import ops
+    from vstnet_tpu_torch.models import cwct
+    from vstnet_tpu_torch.ops import regions
+
+    for k in (8, 32):
+        x, m, labels = _region_rows(gen, 8, 64 * 96, 32, k, torch.bfloat16,
+                                    dev)
+        xs, ms, _ = _region_rows(gen, 1, 48 * 64, 32, k, torch.bfloat16,
+                                 dev)
+        real = int((labels >= 0).sum())
+        ms[ms == -2] = labels[0]
+        ms[0, :real] = labels[:real]        # the style holds every label
+        region = cwct.style_region_factors(xs.reshape(1, 48, 64, 32),
+                                           ms.reshape(1, 48, 64), k)
+        feat, mask = x.reshape(8, 64, 96, 32), m.reshape(8, 64, 96)
+        ops.reset_launch_counts()
+        got = cwct.transfer_masked_factored(feat, mask, *region)
+        counts = ops.launch_counts()
+        assert (counts["region_moments"], counts["region_apply"]) == (1, 1)
+        monkeypatch.setattr(regions, "takes", lambda x: False)
+        want = cwct.transfer_masked_factored(feat, mask, *region)
+        monkeypatch.undo()
+        assert ops.launch_counts() == counts
+        assert _err(got, want) <= _tol(want, torch.bfloat16)
+
+
 def _tiler_on_cpu(probe):
     """The tiler's regional pass 1 replayed on the CPU from a
     chip_smoke._TilerRegionProbe's rows: the style's moments, each tile
@@ -792,7 +940,8 @@ def test_region_statistics_on_card_match_float64(dev):
     transfer_masked_factored's and the tiler's transfer within 2e-5 of the
     float64 transfer's max, as the global cWCT's statistics. Every
     distance is printed beside the CPU's float32 one on the same values
-    (run with -s to see them)."""
+    (run with -s to see them). On the card the moments and the apply run
+    in the regional kernels (ops/regions.py), whose launches are checked."""
     from chip_smoke import (
         REGION_COV_GATE,
         REGION_TRANSFER_GATE,
@@ -803,12 +952,14 @@ def test_region_statistics_on_card_match_float64(dev):
         region_masks,
         tiler_region_distances,
     )
+    from vstnet_tpu_torch import ops
     from vstnet_tpu_torch.models import cwct
     from vstnet_tpu_torch.models.pipeline import StyleModel
 
     model = StyleModel.random_init(seed=0, device=dev)
     cfg, fp = model.cfg, model.fast_params
     gen = torch.Generator().manual_seed(0)
+    ops.reset_launch_counts()
     with torch.no_grad():
         frames, style = _frames(gen, 8, 512, dev), _frames(gen, 1, 512, dev)
         big = _frames(gen, 1, 1024, dev)
@@ -845,6 +996,8 @@ def test_region_statistics_on_card_match_float64(dev):
     for what, cov, trs, _, _ in rows:
         assert cov <= REGION_COV_GATE, what
         assert max(trs) <= REGION_TRANSFER_GATE, what
+    counts = ops.launch_counts(dev)          # the card's sums: the kernels
+    assert counts["region_moments"] and counts["region_apply"]
 
 
 def _tiler_global_on_cpu(probe, z_style):

@@ -17,8 +17,15 @@ TF32 off, even when the latent is bf16 (float64 on a float64 latent, for
 reference runs: ops.at_least_f32); the statistics are summed in float64
 on a CUDA card and in an exported program, and rounded once
 (_accumulate); the apply sums in float32 and rounds once to the latent's
-dtype. There is no hand-written kernel here: the 32x32 statistics, the
-Cholesky, the triangular solve and the apply product are torch ops.
+dtype. The global transfer has no hand-written kernel: its 32x32
+statistics, the Cholesky, the triangular solve and the apply product are
+torch ops. The regional transfer's two passes over the rows, the
+per-label moments and the per-label apply, run as two kernels on a CUDA
+card (ops/regions.py, csrc/regions.cu) for a bf16 or float32 latent 32 or
+128 channels wide, a whole batch of frames a launch; everywhere else, and
+as the kernels' reference, they run as the torch loops region_moments_plain
+and apply_regions_plain. The 32x32 factorisations between them are torch
+ops, batched over the frames.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import contextlib
 
 import torch
 
-from vstnet_tpu_torch.ops import at_least_f32
+from vstnet_tpu_torch.ops import at_least_f32, regions
 
 EPS_DEFAULT = 2e-5
 
@@ -379,14 +386,22 @@ def interpolation(content_feat, style_feats, alpha_s, alpha_c=0.0,
 # ---------------------------------------------------------------------------
 #
 # Counterpart of the regional part of vstnet_tpu/models/cwct.py. Pixels are
-# rows here: x (N, C) with a label per row. K is the region capacity: the
-# label list is the sorted distinct labels padded with -1 to K. The JAX
-# package scans (chunk, K, C) one-hot products; here the same sums are one
-# batched matmul per chunk of pixels, (K*C, chunk) @ (chunk, C), with TF32
-# off, in _accumulate's dtype: float32 on the CPU (the JAX package's), float64
-# on a CUDA card and in an exported program. A bf16 latent holds bf16 values
-# and its one-hot products are exact in either, so bf16 moments equal float32
-# moments of the same values up to the order of the sums.
+# rows here: x (N, C) with a label per row, or a batch of frames (B, N, C).
+# K is the region capacity: the label list is the sorted distinct labels
+# padded with -1 to K. The sums are taken in _accumulate's dtype: float32 on
+# the CPU (the JAX package's), float64 on a CUDA card and in an exported
+# program. On a card, a bf16 or float32 latent of 32 or 128 channels goes to
+# the two kernels of ops/regions.py (regions.takes): the per-label moments,
+# each row added to its own slot alone, and the apply, each row under its own
+# slot's transform, a batch of frames a launch. Everywhere else (the CPU,
+# other widths and dtypes, torch.export) the same sums run as the plain
+# loops, which the card tests also hold the kernels to: region_moments_plain,
+# the JAX package's (chunk, K, C) one-hot scans as one batched matmul per
+# chunk of pixels, (K*C, chunk) @ (chunk, C), with TF32 off, and
+# apply_regions_plain, every label's transform on a chunk and one taken. A
+# bf16 latent holds bf16 values and its products are exact in either dtype,
+# so bf16 moments equal float32 moments of the same values up to the order of
+# the sums.
 
 MIN_PIXELS = 10
 MAX_RATIO_RESEARCH = 100.0
@@ -433,8 +448,37 @@ def region_moments(x, m, labels, chunk=None):
     several passes (the tiler's tiles, models/ultra.py) before
     stats_from_moments. Leading dims are rows too: a batch of tiles gives
     the sum of the JAX package's batched=True moments over its tiles.
-    chunk: rows per matmul; by default REGION_CHUNK float32 rows' bytes
-    (32768 rows in float32, 16384 in float64)."""
+    The kernel where regions.takes(x), else region_moments_plain (chunk:
+    its rows per matmul)."""
+    if regions.takes(x):
+        c = x.shape[-1]
+        cnt, sm, gm = regions.region_moments(x.reshape(1, -1, c),
+                                             m.reshape(1, -1), labels)
+        return cnt[0], sm[0], gm[0]
+    return region_moments_plain(x, m, labels, chunk)
+
+
+def frame_moments(x, m, labels):
+    """region_moments of each frame of x (B, N, C) under m (B, N), stacked:
+    counts (B, K), sums (B, K, C), gram (B, K, C, C). labels (K,) serves
+    every frame, (B, K) gives each its own. One kernel launch where
+    regions.takes(x), else region_moments_plain frame by frame."""
+    if regions.takes(x):
+        return regions.region_moments(x, m, labels)
+    return tuple(map(torch.stack, zip(*(
+        region_moments_plain(x[i], m[i], _frame(labels, i))
+        for i in range(x.shape[0])))))
+
+
+def _frame(t, i):
+    """Frame i's label table: labels (K,) are shared, (B, K) are not."""
+    return t[i] if t.dim() == 2 else t
+
+
+def region_moments_plain(x, m, labels, chunk=None):
+    """region_moments as torch loops, the one-hot form: chunk rows per
+    matmul, by default REGION_CHUNK float32 rows' bytes (32768 rows in
+    float32, 16384 in float64)."""
     c = x.shape[-1]
     x, m = x.reshape(-1, c), m.reshape(-1)
     n = x.shape[0]
@@ -478,6 +522,12 @@ def _region_stats(x, m, labels):
                               dtype=at_least_f32(x[:0]).dtype)
 
 
+def _frame_stats(x, m, labels):
+    """_region_stats of each frame of x (B, N, C), stacked (frame_moments)."""
+    return stats_from_moments(*frame_moments(x, m, labels),
+                              dtype=at_least_f32(x[:0]).dtype)
+
+
 def region_transforms(labels, nc, mean_c, cov_c, ns, mean_s, cov_s,
                       eps: float = EPS_DEFAULT,
                       min_pixels: float = MIN_PIXELS,
@@ -485,7 +535,9 @@ def region_transforms(labels, nc, mean_c, cov_c, ns, mean_s, cov_s,
     """Per-label (T (K, C, C), b (K, C), valid (K,)) from per-label content
     and style statistics: T = Ls Lc^{-1}, b = mu_s - T mu_c; a region is
     valid when its label is real, both sides hold more than min_pixels and
-    their area ratio is bounded by max_ratio."""
+    their area ratio is bounded by max_ratio. Leading dims broadcast: a
+    batch of frames' statistics (B, K, ...) against one style's (K, ...)
+    gives (B, K, ...) in one call."""
     valids = ((labels >= 0) & (nc > min_pixels) & (ns > min_pixels)
               & (nc < max_ratio * ns) & (ns < max_ratio * nc))
     with true_f32_matmul():
@@ -496,11 +548,28 @@ def region_transforms(labels, nc, mean_c, cov_c, ns, mean_s, cov_s,
     return ts, bs, valids
 
 
-def apply_regions(x, m, labels, ts, bs, valids, chunk: int = REGION_CHUNK):
+def apply_regions(x, m, labels, ts, bs, valids):
     """y_n = T_{label(n)} x_n + b_{label(n)} for rows in valid regions;
-    rows of any other label keep their content. x (N, C); the product sums
-    in float32 over x's values and T rounded to x's dtype, and is rounded
-    once to x's dtype."""
+    rows of any other label keep their content. x (N, C) with ts (K, C, C),
+    bs (K, C), valids (K,), or a batch of frames x (B, N, C) with ts
+    (B, K, C, C), bs (B, K, C), valids (B, K) and labels (K,) or (B, K);
+    the product sums in float32 over x's values and T rounded to x's
+    dtype, and is rounded once to x's dtype. One kernel launch where
+    regions.takes(x), else apply_regions_plain frame by frame."""
+    if x.dim() == 2:
+        return apply_regions(x[None], m[None], labels, ts[None], bs[None],
+                             valids[None])[0]
+    if regions.takes(x):
+        return regions.apply_regions(x, m, labels, ts, bs, valids)
+    return torch.stack([
+        apply_regions_plain(x[i], m[i], _frame(labels, i), ts[i], bs[i],
+                            valids[i]) for i in range(x.shape[0])])
+
+
+def apply_regions_plain(x, m, labels, ts, bs, valids,
+                        chunk: int = REGION_CHUNK):
+    """apply_regions of x (N, C) as torch loops: every label's transform
+    on a chunk of rows, the row's own taken."""
     n, c = x.shape
     k = labels.shape[0]
     t_all = ts.to(x.dtype).float().reshape(k * c, c)
@@ -541,15 +610,12 @@ def transfer_masked(content_feat, style_feat, cmask, smask,
     xc, xs = _rows(content_feat).to(dt), _rows(style_feat).to(dt)
     cm = cmask.reshape(cmask.shape[0], -1).to(torch.int32)
     sm = smask.reshape(smask.shape[0], -1).to(torch.int32)
-    out = torch.empty_like(xc)
-    for i in range(xc.shape[0]):
-        labels = _padded_labels(cm[i], max_labels)
-        nc, mean_c, cov_c = _region_stats(xc[i], cm[i], labels)
-        ns, mean_s, cov_s = _region_stats(xs[i], sm[i], labels)
-        ts, bs, valids = region_transforms(
-            labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
-            float(min_pixels), max_ratio)
-        out[i] = apply_regions(xc[i], cm[i], labels, ts, bs, valids)
+    labels = torch.stack([_padded_labels(cm[i], max_labels)
+                          for i in range(cm.shape[0])])
+    ts, bs, valids = region_transforms(
+        labels, *_frame_stats(xc, cm, labels), *_frame_stats(xs, sm, labels),
+        eps, float(min_pixels), max_ratio)
+    out = apply_regions(xc, cm, labels, ts, bs, valids)
     return out.reshape(content_feat.shape).to(content_feat.dtype)
 
 
@@ -574,16 +640,15 @@ def transfer_masked_factored(content_feat, cmask, labels, ns, mean_s, cov_s,
     """Regional cWCT against precomputed per-label style statistics
     (style_region_factors). Equal to transfer_masked whenever every content
     label appears in `labels`. content_feat (B, H, W, C); cmask (B, H, W);
-    the style-side tensors are shared across the batch. No host sync."""
+    the style-side tensors are shared across the batch. No host sync. The
+    frames' moments, their transforms and the apply each run once for the
+    whole batch."""
     xc = _rows(content_feat)
     if xc.dtype not in (torch.float32, torch.bfloat16):
         xc = xc.float()
     cm = cmask.reshape(cmask.shape[0], -1).to(torch.int32)
-    out = torch.empty_like(xc)
-    for i in range(xc.shape[0]):
-        nc, mean_c, cov_c = _region_stats(xc[i], cm[i], labels)
-        ts, bs, valids = region_transforms(
-            labels, nc, mean_c, cov_c, ns, mean_s, cov_s, eps,
-            float(min_pixels), max_ratio)
-        out[i] = apply_regions(xc[i], cm[i], labels, ts, bs, valids)
+    ts, bs, valids = region_transforms(
+        labels, *_frame_stats(xc, cm, labels), ns, mean_s, cov_s, eps,
+        float(min_pixels), max_ratio)
+    out = apply_regions(xc, cm, labels, ts, bs, valids)
     return out.reshape(content_feat.shape).to(content_feat.dtype)

@@ -39,7 +39,8 @@ either way, and is cast back to the packed dtype before decode_fast. The
 statistics' matmuls run with TF32 off (cwct.true_f32_matmul) and sum in
 cwct._accumulate's dtype: float64 on a card, for the global pass 1
 (_moments_chunk, _content_stats) and the regional one
-(cwct.region_moments). Summed in float32 there (cuBLAS over a tile
+(cwct.region_moments: on a card, one launch of the regional moments
+kernel a tile batch, ops/regions.py). Summed in float32 there (cuBLAS over a tile
 batch's 4 M latent rows, then the cancelling Gram - n mean mean^T), the
 global covariance of a 3840x2160 content lies 2.1e-6 (float32 route) and
 1.4e-5 (fused route) of its max from float64 of the same rows, against a
@@ -195,7 +196,8 @@ def _stylize_chunk_masked(weights, content, y0s, x0s, wts, cm_lat, labels,
                           tsb, valids, out, wsum, cfg: RevResNetConfig,
                           th: int, tw: int, sc: int, fast: bool = False):
     """One tile batch of the regional pass 2: each pixel takes its
-    region's transform (cwct.apply_regions, row by row)."""
+    region's transform (cwct.apply_regions: on a card, one launch of the
+    regional apply kernel)."""
     ts, bs = tsb
     z = _enc(weights, _slice_tiles(content, y0s, x0s, th, tw), cfg, fast)
     m = _tile_masks(cm_lat, y0s, x0s, th, tw, sc)

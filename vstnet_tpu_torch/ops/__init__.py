@@ -2,14 +2,15 @@
 
 Each kernel's launches are counted where it is launched (`count_launch`),
 in a plain int attribute of its wrapper and, by device, in the wrapper's
-`device_launches` counter; `launch_counts` reads all eight by kernel name
+`device_launches` counter; `launch_counts` reads all ten by kernel name
 (for one device when given one) and `reset_launch_counts` clears them, so
 a run can show which kernels its path went through, and on which card. The counts are disjoint: "coupling" is the CUDA-core K1
 kernel (csrc/coupling.cu) and "coupling_mma" the tensor-core one
 (csrc/coupling_mma.cu), both launched by `fused_coupling`; "transition" /
 "transition_mma" and "transition_half" / "transition_half_mma" are
 csrc/transition.cu and csrc/transition_mma.cu behind `fused_transition`
-and `fused_transition_half`.
+and `fused_transition_half`; "region_moments" and "region_apply" are
+csrc/regions.cu behind the regional cWCT (ops/regions.py).
 
 `at_least_f32` is the dtype rule of every float32 statistic (cWCT, VGG
 statistics, the matting term, the training losses): bf16 and float32
@@ -39,7 +40,7 @@ def count_launch(fn, attr: str, device) -> None:
 
 def _counters():
     """kernel name -> (wrapper, name of its count attribute)."""
-    from vstnet_tpu_torch.ops import attention, coupling_fused, dwconv
+    from vstnet_tpu_torch.ops import attention, coupling_fused, dwconv, regions
 
     return {"coupling": (coupling_fused.fused_coupling, "fma_launches"),
             "coupling_mma": (coupling_fused.fused_coupling, "mma_launches"),
@@ -51,7 +52,9 @@ def _counters():
             "transition_half_mma": (coupling_fused.fused_transition_half,
                                     "mma_launches"),
             "attention": (attention.sr_attention, "launches"),
-            "dwconv_gelu": (dwconv.dwconv3x3_bias_gelu, "launches")}
+            "dwconv_gelu": (dwconv.dwconv3x3_bias_gelu, "launches"),
+            "region_moments": (regions.region_moments, "launches"),
+            "region_apply": (regions.apply_regions, "launches")}
 
 
 def launch_counts(device=None) -> dict:

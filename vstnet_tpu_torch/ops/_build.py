@@ -58,6 +58,14 @@ _SIGNATURES = {
                      + [_P],
     # x, w, bias, out, B, H, W, C, stream
     "vst_dwconv_gelu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, m, labels, label stride, partial, touched, out, B, N, C, K, P, R,
+    # is_bf16, stream
+    "vst_region_moments": [_P, _P, _P, _I, _P, _P, _P, _I, _L, _I, _I, _I,
+                           _I, _I, _P],
+    # x, m, labels, label stride, ts, bs, valid, out, B, N, C, K, P, R,
+    # is_bf16, stream
+    "vst_region_apply": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                         _I, _I, _P],
 }
 
 
