@@ -360,6 +360,20 @@ K4_UNROUTED = ("256 s1", 1, 4096, 64)
 K4_CHECKS = [("512 s1", 4, 16384, 256), ("1024 s1", 1, 65536, 1024),
              ("1024 s2", 2, 16384, 1024), ("ragged", 2, 9001, 250),
              ("large M", 1, 8200, 4096)]
+# (name, B, heads, N, M, launches per segment call) of the attention that
+# K4 is not routed to (fewer than MIN_Q queries), PyTorch's flash SDPA in
+# the model's views: stages 2-4 of 512x512 frames at the timings' batch;
+# then stages 3 and 4 of the auto-seg cell's 1280x720 frames at its batch
+SDPA_SHAPES = [("512 s2", 8, 2, 4096, 256, 8), ("512 s3", 8, 5, 1024, 256, 27),
+               ("512 s4", 8, 8, 256, 256, 3)]
+SDPA_CELL = [("720p s3", 8, 5, 3600, 880), ("720p s4", 8, 8, 920, 920)]
+# (name, B, h, w, H, W) of the logits' upsample and argmax: 512x512 frames
+# at the timings' batch, the auto-seg cell's batch, and shapes whose tiles
+# the image cuts on both axes at a scale other than 4
+UA_SHAPES = [("512", 8, 128, 128, 512, 512),
+             ("720p", 8, 180, 320, 720, 1280),
+             ("ragged", 2, 17, 23, 67, 91), ("twofold", 1, 45, 80, 90, 160)]
+SEG_CLASSES = 150
 # (name, hidden C, H, W, launches per segment call) of the MixFFN kernel at
 # 512x512 frames, SegFormer-B4 depths 3/8/27/3
 K5_SHAPES = [("s1", 256, 128, 128, 3), ("s2", 512, 64, 64, 8),
@@ -420,7 +434,16 @@ KERNELS = {
     # no TPU kernel: the JAX package's one-hot scans, left to XLA
     "region_moments": ("vstnet_tpu_torch/csrc/regions.cu", "none"),
     "region_apply": ("vstnet_tpu_torch/csrc/regions.cu", "none"),
+    # no TPU kernel: the segmenter stages' attention that K4 is not routed
+    # to, on PyTorch's flash SDPA (a library kernel, counted by its
+    # wrapper), and the logits' upsample and argmax
+    "attention_sdpa": ("torch flash SDPA, vstnet_tpu_torch/ops/attention.py",
+                       "none"),
+    "upsample_argmax": ("vstnet_tpu_torch/csrc/upsample_argmax.cu", "none"),
 }
+# one bf16 segment call's launches of the two at 512x512 frames (and at
+# 640x360: stage 1 takes K4, stages 2-4 SDPA)
+SEG_NEW_512 = {"attention_sdpa": 38, "upsample_argmax": 1}
 # the regional cWCT's launches: one of each kernel a regional transfer
 # of a batch (the moments once more for a style, twice for
 # transfer_masked's content and style)
@@ -541,6 +564,40 @@ def bound_transition(b, c, h, w, streams, esize=2, peak=PEAK_BF16):
 def bound_attention(g, n, m, d=64, esize=2):
     """K4: q read, o written, k and v read; 4 N M D operations."""
     return _bound(2.0 * g * (n + m) * d * esize, 4.0 * g * n * m * d)
+
+
+def bound_upsample_argmax(b, h, w, big_h, big_w, c=SEG_CLASSES):
+    """The logits (B, h, w, C) float32 read, the int32 mask (B, H, W)
+    written; three multiply-adds a class a pixel (two x blends and a y
+    blend), float32 outside the tensor cores."""
+    return _bound(4.0 * b * (h * w * c + big_h * big_w),
+                  6.0 * b * big_h * big_w * c, PEAK_F32)
+
+
+def _model_views(gen, b, heads, n, m, device):
+    """q a (B, N, heads, 64) view of a q projection, k and v views of one
+    (B, M, 2, heads, 64) kv projection, bf16, drawn on the card."""
+    d, bf = 64, torch.bfloat16
+    q = torch.randn((b, n, heads * d), generator=gen, device=device,
+                    dtype=bf).view(b, n, heads, d)
+    kv = torch.randn((b, m, 2 * heads * d), generator=gen, device=device,
+                     dtype=bf).view(b, m, 2, heads, d)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def upsample_argmax_ties(got, logits, h, w):
+    """The pixels where the fused mask differs from the plain one, and how
+    many of them have their two largest upsampled logits more than a
+    float32 ulp apart (0 where the difference is only rounding)."""
+    from vstnet_tpu_torch.ops.resize import resize_bilinear
+
+    up = resize_bilinear(logits, h, w)
+    off = got != up.argmax(-1).to(torch.int32)
+    top2 = up[off].topk(2, dim=-1).values
+    next_up = torch.nextafter(top2[:, 0], torch.full_like(top2[:, 0],
+                                                          float("inf")))
+    wide = int((top2[:, 0] - top2[:, 1] > next_up - top2[:, 0]).sum())
+    return int(off.sum()), wide
 
 
 def bound_dwconv(b, h, w, c):
@@ -780,6 +837,32 @@ def phase_kernels(cf, att, dw, device, gen):
         _check(f"K5 {name} C={c} {h}x{w} B={b} bf16 (bit-identical to plain: "
                f"{torch.equal(got, ref)})", got, ref, _bf16_tol(ref, K5_ULPS),
                worst, "dwconv_gelu")
+    for name, b, heads, n, m in [x[:5] for x in SDPA_SHAPES] + SDPA_CELL:
+        q, k, v = _model_views(dgen, b, heads, n, m, device)
+        before = att.sr_attention.launches
+        got = att.sr_attention_sdpa(q, k, v, 0.125)
+        ref = att.sr_attention_plain(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        if att.sr_attention.launches != before:
+            raise AssertionError("the SDPA route launched K4")
+        _check(f"SDPA {name} B={b} heads={heads} N={n} M={m} bf16 (flash, "
+               f"the model's views)", got, ref, _bf16_tol(ref), worst,
+               "attention_sdpa")
+    from vstnet_tpu_torch.ops import upsample_argmax as ua
+
+    for name, b, h, w, big_h, big_w in UA_SHAPES:
+        logits = torch.randn((b, h, w, SEG_CLASSES), generator=dgen,
+                             device=device) * 4
+        got = ua.upsample_argmax(logits, big_h, big_w)
+        off, wide = upsample_argmax_ties(got, logits, big_h, big_w)
+        print(f"check upsample_argmax {name} B={b} {h}x{w} -> {big_h}x"
+              f"{big_w}: {off} of {got.numel()} pixels differ from "
+              f"resize_bilinear + argmax, {wide} of them by more than a "
+              f"float32 ulp between their two largest logits")
+        worst["upsample_argmax"] = max(worst["upsample_argmax"], float(off))
+        if wide or got.dtype != torch.int32:
+            raise AssertionError(f"upsample_argmax {name}: {wide} pixels "
+                                 "differ beyond rounding")
     return worst
 
 
@@ -952,20 +1035,27 @@ def phase_global(ops, model, device, gen, total):
 # ---------------------------------------------------------------------------
 
 class _plain_segformer_kernels:
-    """Within the block the segmenter's two kernel call sites run the
-    kernels' plain versions: the plain bf16 route, same dtype chain."""
+    """Within the block the segmenter's kernel call sites (K4, the SDPA
+    route, K5, the fused upsample and argmax) run their plain versions:
+    the plain bf16 route, same dtype chain."""
+
+    NAMES = ("sr_attention", "sr_attention_sdpa", "dwconv3x3_bias_gelu",
+             "fused_mask")
 
     def __enter__(self):
         from vstnet_tpu_torch.models import segformer as sf
         from vstnet_tpu_torch.ops import attention, dwconv
 
         self.sf = sf
-        self.saved = sf.sr_attention, sf.dwconv3x3_bias_gelu
-        sf.sr_attention = attention.sr_attention_plain
-        sf.dwconv3x3_bias_gelu = dwconv.dwconv3x3_bias_gelu_plain
+        self.saved = [getattr(sf, n) for n in self.NAMES]
+        for name, plain in zip(self.NAMES, (
+                attention.sr_attention_plain, attention.sr_attention_plain,
+                dwconv.dwconv3x3_bias_gelu_plain, lambda *a: False)):
+            setattr(sf, name, plain)
 
     def __exit__(self, *exc):
-        self.sf.sr_attention, self.sf.dwconv3x3_bias_gelu = self.saved
+        for name, fn in zip(self.NAMES, self.saved):
+            setattr(self.sf, name, fn)
 
 
 def _plain_masked(model, style, smask, frames, masks):
@@ -1025,7 +1115,7 @@ def phase_masked(ops, model, seg, style, device, gen, total):
     want = {"coupling": 0, "coupling_mma": 60, "transition": 0,
             "transition_mma": 4, "transition_half": 0,
             "transition_half_mma": 0, "attention": 3, "dwconv_gelu": 41,
-            **REGION_ONCE}
+            **SEG_NEW_512, **REGION_ONCE}
     ops.reset_launch_counts()
     outs = [run(video, frames, want, "masked 512x512") for frames in batches]
     torch.cuda.synchronize()
@@ -1096,14 +1186,15 @@ def phase_masked(ops, model, seg, style, device, gen, total):
     # the segmenter at 256x256: under the routing threshold, no K4
     small = make_masked_fused_video_fn(cfg, out_u8=True, seg_hw=(256, 256))
     ops.reset_launch_counts()
-    out, m256 = run(small, frames, dict(want, attention=0), "seg 256x256")
+    out, m256 = run(small, frames, dict(want, attention=0,
+                                        attention_sdpa=41), "seg 256x256")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _add(total, counts)
     agree = float((m256 == masks).float().mean())
     print(f"masked seg_hw=(256, 256): launches {counts}: attention is 0, "
-          f"4096 queries are under the routing threshold of {MIN_Q}; masks "
-          f"agree with native on {agree:.4f}")
+          f"4096 queries are under the routing threshold of {MIN_Q} (all 41 "
+          f"blocks on SDPA); masks agree with native on {agree:.4f}")
     if tuple(m256.shape) != (4, 512, 512) or out.dtype != torch.uint8:
         raise AssertionError(f"seg 256: {tuple(m256.shape)} {out.dtype}")
 
@@ -1178,6 +1269,7 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
     from vstnet_tpu_torch.ops.coupling import pixel_shuffle, pixel_unshuffle
 
     bf = torch.bfloat16
+    gen_dev = torch.Generator(device=device).manual_seed(2)
     rec = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
 
@@ -1338,6 +1430,49 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         _line("attention", name, f"G={SMOKE_B * heads} N={n} M={m} (B="
               f"{SMOKE_B}, {heads} head(s))", tk, tp,
               bound_attention(SMOKE_B * heads, n, m), lib)
+    # the stages K4 is not routed to, on flash SDPA in the model's views:
+    # at 512x512 B=8 (the record's segment call) and at the auto-seg cell's
+    # shapes, beside K4 (csrc/attention.cu) and cuDNN's SDPA at the same
+    # shapes, neither of which the route takes
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def cudnn_sdpa(q, k, v):
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=0.125)
+
+    for name, b, heads, n, m, *count in SDPA_SHAPES + SDPA_CELL:
+        q, k, v = _model_views(gen_dev, b, heads, n, m, device)
+        tk, tp = _time_pair(lambda: att.sr_attention_sdpa(q, k, v, 0.125),
+                            lambda: att.sr_attention_plain(q, k, v, 0.125),
+                            iters=5)
+        bound = bound_attention(b * heads, n, m)
+        _line("attention_sdpa", name, f"B={b} heads={heads} N={n} M={m}",
+              tk, tp, bound)
+        if count:
+            tally("attention_sdpa", count[0], tk, tp, bound)
+        else:
+            k4 = _time_ms(lambda: att.sr_attention(q, k, v, 0.125))
+            try:
+                cudnn = f"{_time_ms(lambda: cudnn_sdpa(q, k, v)):.3f} ms"
+            except RuntimeError as exc:
+                cudnn = f"not run ({str(exc)[:60]})"
+            print(f"time attention_sdpa {name}: beside it K4 (not routed "
+                  f"here) {k4:.3f} ms, cuDNN SDPA {cudnn}")
+    from vstnet_tpu_torch.ops import upsample_argmax as ua
+
+    for name, b, h, w, big_h, big_w in UA_SHAPES[:2]:
+        logits = torch.randn((b, h, w, SEG_CLASSES), generator=gen_dev,
+                             device=device)
+        tk, tp = _time_pair(
+            lambda: ua.upsample_argmax(logits, big_h, big_w),
+            lambda: ua.upsample_argmax_plain(logits, big_h, big_w), iters=5)
+        bound = bound_upsample_argmax(b, h, w, big_h, big_w)
+        _line("upsample_argmax", name, f"B={b} {h}x{w}x{SEG_CLASSES} -> "
+              f"{big_h}x{big_w}", tk, tp, bound, dtype="float32")
+        if name == "512":
+            tally("upsample_argmax", 1, tk, tp, bound)
     # K5 by graph replay; eagerly too, and cuDNN's bf16 channels_last
     # depthwise conv with bias, then F.gelu: a yardstick of two calls that
     # the port never makes (no single call computes K5: library_ms is None)
@@ -2162,7 +2297,8 @@ def _segment_call_launches(ops, call):
     before = ops.launch_counts()
     sf.segment_mask(seg_net, x, half=True)
     after = ops.launch_counts()
-    return {k: after[k] - before[k] for k in ("attention", "dwconv_gelu")}
+    return {k: after[k] - before[k] for k in ("attention", "dwconv_gelu",
+                                              *SEG_NEW_512)}
 
 
 def _cli_breakdown(root, clip, frames, calls):
@@ -2414,8 +2550,10 @@ ULTRA_PER_CHUNK = {1: {"coupling_mma": 30, "transition_mma": 2},
 ULTRA_STYLE_ENCODE = {"coupling_mma": 30, "transition_mma": 2}
 # one bf16 segment call at 1024x576 (the 4K content capped at 1024 a side,
 # and the style): stage 1 has 36864 queries and stage 2 9216, both at or
-# above MIN_Q, so 3 + 8 attention launches; 41 MixFFN blocks
-ULTRA_SEG_CALL = {"attention": 11, "dwconv_gelu": 41}
+# above MIN_Q, so 3 + 8 attention launches, and stages 3 and 4 take SDPA
+# (27 + 3); 41 MixFFN blocks; one upsample and argmax
+ULTRA_SEG_CALL = {"attention": 11, "dwconv_gelu": 41, "attention_sdpa": 30,
+                  "upsample_argmax": 1}
 
 
 class _UltraProbe:
@@ -3492,7 +3630,8 @@ GGUF_F16_PSNR = 40.0
 GGUF_LAUNCHES = {"coupling": 0, "coupling_mma": 90, "transition": 0,
                  "transition_mma": 6, "transition_half": 0,
                  "transition_half_mma": 0, "attention": 0, "dwconv_gelu": 0,
-                 "region_moments": 0, "region_apply": 0}
+                 "region_moments": 0, "region_apply": 0, "attention_sdpa": 0,
+                 "upsample_argmax": 0}
 # the smoke photo path at 1024x1024 (fast route: bf16 segmenter, fused
 # encode and decode) launches K1, K2, K4 and K5; the profiler names each
 # by its __global__ function, templates with their arguments after it
@@ -5214,7 +5353,8 @@ def main():
           "in bf16 at 640x360; coupling, transition and transition_half, "
           "the float32 route's kernels, 30, 2 and 2 in float32 at the same "
           "sizes) or of one segment call at 512x512 B=8 in bf16 "
-          "(attention 3, dwconv_gelu 41; dwconv_gelu's ms by CUDA-graph "
+          "(attention 3, dwconv_gelu 41, attention_sdpa 38, "
+          "upsample_argmax 1; dwconv_gelu's ms by CUDA-graph "
           "replay, the others' eagerly) or of one call at the auto-seg "
           "cell's batch, 8 x 1280x720, C=32, K=16 (region_moments, "
           "region_apply); bound_ms sums each launch's "
@@ -5222,7 +5362,9 @@ def main():
           "max_abs_err is the largest kernel-vs-plain error of phase 3, in "
           "bf16 (coupling, transition, transition_half: in float32; "
           "region_moments: the phase regions' largest distance of the "
-          "plain float64 sums' max, region_apply its abs err)")
+          "plain float64 sums' max, region_apply its abs err; "
+          "upsample_argmax: the most pixels of one check whose class "
+          "differs from resize_bilinear + argmax)")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ identity is not expected); the float32 round trip through a kernel within
 coupling kernel within 2 bf16 ulps of the stream's scale (F cancels bit
 for bit, the two roundings of y and x1 remain); the same for the
 tensor-core transition kernel.
-The attention kernel (K4) rounds its probabilities to bf16 before P.V, so
+The attention kernel (K4), and the SDPA route at the stages K4 is not
+routed to, round their probabilities to bf16 before P.V, so
 a probability near a rounding boundary may flip; with M keys of weight
 <= 1/M each that moves the output by far less than one bf16 ulp of its
 scale, and 2 ulps are allowed. The depthwise conv + GELU kernel (K5)
@@ -349,6 +350,113 @@ def test_attention_kernel_reads_strided_views(dev):
         att.sr_attention(q[..., :32], k[..., :32], v[..., :32], 0.125)
 
 
+def _model_views(dev, seed, b, heads, n, m):
+    """q a (B, N, heads, 64) view of a q projection, k and v views of one
+    (B, M, 2, heads, 64) kv projection, bf16, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, n, heads * 64), generator=gen, device=dev,
+                    dtype=torch.bfloat16).view(b, n, heads, 64)
+    kv = torch.randn((b, m, 2 * heads * 64), generator=gen, device=dev,
+                     dtype=torch.bfloat16).view(b, m, 2, heads, 64)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+@pytest.mark.parametrize("b,heads,n,m", [(8, 5, 3600, 880),
+                                         (8, 8, 920, 920), (2, 2, 130, 33)],
+                         ids=["stage3-720p", "stage4-720p", "ragged"])
+def test_attention_sdpa_route_matches_plain(dev, b, heads, n, m):
+    """The SDPA route (flash) in the model's views at the auto-seg cell's
+    stage-3 and stage-4 shapes, and a ragged one, against the plain
+    version within K4's two bf16 ulps, taken at the output's own largest
+    magnitude (no floor at 1.0): one counted call, no K4 launch. On an
+    H100 the route lies 0.5 to 1 ulp from the plain version at these
+    shapes; dropping one key moves the output by 25 ulps or more, and
+    a scale 1 % off by 3 or more."""
+    q, k, v = _model_views(dev, n + m, b, heads, n, m)
+    k4, before = att.sr_attention.launches, att.sr_attention_sdpa.launches
+    got = att.sr_attention_sdpa(q, k, v, 0.125)
+    ref = att.sr_attention_plain(q, k, v, 0.125)
+    tol = 2 * 2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _err(got, ref) <= tol
+    assert att.sr_attention_sdpa.launches == before + 1
+    assert att.sr_attention.launches == k4
+    flat = att.sr_attention_sdpa(
+        *(t.permute(0, 2, 1, 3).reshape(b * heads, -1, 64).contiguous()
+          for t in (q, k, v)), 0.125)
+    assert _err(flat.reshape(b, heads, n, 64).permute(0, 2, 1, 3),
+                ref) <= tol
+
+
+def test_segment_720p_keeps_k4_and_takes_the_new_routes(dev):
+    """One bf16 segment call of SegFormer-B4 at 1280x720: K4's launches
+    are those of stages 1 and 2 (3 + 8, as before), the SDPA route's those
+    of stages 3 and 4 (27 + 3), K5 one a block, one fused upsample and
+    argmax; its mask equals the plain upsample and argmax of its logits."""
+    from vstnet_tpu_torch import ops
+    from vstnet_tpu_torch.models import segformer as sf
+
+    net = sf.SegFormer(device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    x = torch.rand((2, 720, 1280, 3), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    before = ops.launch_counts()
+    mask = sf.segment_mask(net, x, half=True)
+    after = ops.launch_counts()
+    assert {k: v - before[k] for k, v in after.items() if v != before[k]} \
+        == {"attention": 3 + 8, "attention_sdpa": 27 + 3,
+            "dwconv_gelu": 41, "upsample_argmax": 1}
+    want = sf.segment_logits(net, x, half=True).argmax(-1)
+    assert mask.dtype == torch.int32 and torch.equal(mask, want.int())
+
+
+def _near_ties(dev, b, h, w):
+    """Logits whose classes 0 and 1 lie within an ulp of each other at
+    every pixel and above the rest: the blend's rounding decides."""
+    gen = torch.Generator(device=dev).manual_seed(h * w)
+    base = torch.randn((b, h, w, 1), generator=gen, device=dev) + 3.0
+    step = torch.randint(-1, 2, base.shape, generator=gen, device=dev)
+    near = torch.nextafter(base, base + step.float())
+    rest = torch.full((b, h, w, 148), -10.0, device=dev)
+    return torch.cat([base, near, rest], dim=-1)
+
+
+@pytest.mark.parametrize("b,h,w,big_h,big_w,ties", [
+    (8, 180, 320, 720, 1280, False), (8, 180, 320, 720, 1280, True),
+    (2, 17, 23, 67, 91, False), (2, 45, 80, 100, 170, True),
+    (1, 45, 80, 90, 160, False), (3, 1, 1, 4, 4, False),
+    (1, 7, 130, 28, 520, False)],
+    ids=["720p", "720p-ties", "ragged", "ragged-ties", "twofold", "one",
+         "wide"])
+def test_upsample_argmax_matches_resize_argmax(dev, b, h, w, big_h, big_w,
+                                               ties):
+    """The fused upsample and argmax against resize_bilinear(...).argmax
+    on seeded logits: the masks are integer-equal, or every pixel that
+    differs has its two largest upsampled logits within one float32 ulp
+    (the count is printed). One launch."""
+    from vstnet_tpu_torch.ops import upsample_argmax as ua
+    from vstnet_tpu_torch.ops.resize import resize_bilinear
+
+    if ties:
+        logits = _near_ties(dev, b, h, w)
+    else:
+        logits = torch.randn((b, h, w, 150), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(b * h * w)) * 4
+    before = ua.upsample_argmax.launches
+    got = ua.upsample_argmax(logits, big_h, big_w)
+    assert ua.upsample_argmax.launches == before + 1
+    up = resize_bilinear(logits, big_h, big_w)
+    ref = up.argmax(-1).to(torch.int32)
+    assert got.shape == ref.shape and got.dtype == torch.int32
+    off = got != ref
+    top2 = up[off].topk(2, dim=-1).values
+    ulp = torch.nextafter(top2[:, 0], top2[:, 0] + 1) - top2[:, 0]
+    print(f"upsample_argmax {tuple(logits.shape)} -> {big_h}x{big_w}: "
+          f"{int(off.sum())} of {off.numel()} pixels differ")
+    assert bool((top2[:, 0] - top2[:, 1] <= ulp).all())
+
+
 @pytest.mark.parametrize("b,h,w,c", [
     (2, 9, 7, 128), (1, 1, 5, 256), (2, 16, 16, 2048), (1, 33, 20, 8),
     # the MixFFN shapes of 512x512 frames, and of 1024x1024 frames
@@ -382,8 +490,9 @@ def test_dwconv_gelu_kernel_matches_plain(dev, b, h, w, c):
 
 def test_segformer_kernel_route_matches_plain_route(dev):
     """SegFormer (depth 1 per stage) in bf16 at 384x384, where stage 1 has
-    9216 queries and takes K4: the kernel route against the same network
-    with both kernels swapped for their plain versions."""
+    9216 queries and takes K4 and stages 2-4 take the SDPA route: the
+    kernel route against the same network with K4, the SDPA route and K5
+    swapped for their plain versions."""
     from vstnet_tpu_torch.models import segformer as sf
 
     net = sf.SegFormer((1, 1, 1, 1), device=dev).init_weights(
@@ -391,17 +500,22 @@ def test_segformer_kernel_route_matches_plain_route(dev):
     x = torch.rand((1, 384, 384, 3),
                    generator=torch.Generator().manual_seed(1)).to(dev)
     k4, k5 = att.sr_attention.launches, dw.dwconv3x3_bias_gelu.launches
+    sdpa = att.sr_attention_sdpa.launches
     got = sf.segment_logits(net, x, half=True)
     assert att.sr_attention.launches == k4 + 1
     assert dw.dwconv3x3_bias_gelu.launches == k5 + 4
-    saved = sf.sr_attention, sf.dwconv3x3_bias_gelu
+    assert att.sr_attention_sdpa.launches == sdpa + 3
+    saved = sf.sr_attention, sf.sr_attention_sdpa, sf.dwconv3x3_bias_gelu
     sf.sr_attention = att.sr_attention_plain
+    sf.sr_attention_sdpa = att.sr_attention_plain
     sf.dwconv3x3_bias_gelu = dw.dwconv3x3_bias_gelu_plain
     try:
         ref = sf.segment_logits(net, x, half=True)
     finally:
-        sf.sr_attention, sf.dwconv3x3_bias_gelu = saved
+        (sf.sr_attention, sf.sr_attention_sdpa,
+         sf.dwconv3x3_bias_gelu) = saved
     assert att.sr_attention.launches == k4 + 1
+    assert att.sr_attention_sdpa.launches == sdpa + 3
     scale = float(ref.abs().max())
     assert _err(got, ref) <= 0.05 * scale
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())

@@ -26,6 +26,8 @@ tests/test_torch_cuda.py compares the CUDA kernels themselves with their
 plain versions on a card.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +46,7 @@ from vstnet_tpu_torch.models import segformer as sf
 from vstnet_tpu_torch.ops import attention as att
 from vstnet_tpu_torch.ops import dwconv as dw
 from vstnet_tpu_torch.ops import resize
+from vstnet_tpu_torch.ops import upsample_argmax as ua
 
 torch.set_num_threads(2)
 
@@ -190,6 +193,99 @@ def test_attention_routing_is_the_jax_routing(n, m, dt, ok):
     assert bool(jatt.flash_ok(n, m, jdt)) is ok
 
 
+def _stage_grids(h, w):
+    """[(N, M)] of SegFormer-B4's four stages on an h x w image: each patch
+    embed pads k // 2 and strides, the spatial reduction floors."""
+    out = []
+    for k, st, sr in zip((7, 3, 3, 3), (4, 2, 2, 2), sf.SR_RATIOS):
+        h = (h + 2 * (k // 2) - k) // st + 1
+        w = (w + 2 * (k // 2) - k) // st + 1
+        out.append((h * w, (h // sr) * (w // sr)))
+    return out
+
+
+def _stand_in(is_cuda, dtype, shape):
+    """What the routes read of a tensor, for a card this machine lacks."""
+    return types.SimpleNamespace(
+        is_cuda=is_cuda, dtype=dtype, shape=shape, dim=lambda: len(shape),
+        device=torch.device("cuda" if is_cuda else "cpu"))
+
+
+@pytest.mark.parametrize("hw,routes", [
+    ((512, 512), ("k4", "sdpa", "sdpa", "sdpa")),
+    ((720, 1280), ("k4", "k4", "sdpa", "sdpa")),
+    ((1024, 1024), ("k4", "k4", "sdpa", "sdpa"))])
+def test_attention_route_by_stage(hw, routes):
+    """A bf16 CUDA tensor: K4 where flash_ok (the JAX package's routing,
+    unchanged), flash SDPA at every other stage (at 720x1280, 27 + 3
+    blocks of stages 3 and 4); a CPU tensor and float32 on a card keep the
+    plain version wherever K4 is not routed."""
+    for s, ((n, m), want) in enumerate(zip(_stage_grids(*hw), routes)):
+        q = (1, n, sf.NUM_HEADS[s], att.HEAD_DIM)
+        assert att.route(n, m, _stand_in(True, torch.bfloat16, q)) == want
+        assert (want == "k4") is att.flash_ok(n, m, torch.bfloat16)
+        cpu = att.route(n, m, _stand_in(False, torch.bfloat16, q))
+        assert cpu == ("k4" if want == "k4" else "plain")
+        assert att.route(n, m, _stand_in(True, torch.float32, q)) == "plain"
+    if hw == (720, 1280):
+        sdpa = [d for d, r in zip(sf.DEPTHS, routes) if r == "sdpa"]
+        assert sdpa == [27, 3]
+
+
+def test_new_routes_stay_off_in_an_export_trace():
+    """Inside a torch.export trace the SDPA route and the fused upsample
+    and argmax are never taken, even for tensors on a card."""
+    q = _stand_in(True, torch.bfloat16, (8, 3600, 5, att.HEAD_DIM))
+    logits = _stand_in(True, torch.float32, (8, 180, 320, 150))
+    seen = {}
+
+    class Probe(torch.nn.Module):
+        def forward(self, x):
+            seen["attention"] = att.route(3600, 880, q)
+            seen["mask"] = sf.fused_mask(logits)
+            return x + 1
+
+    assert att.route(3600, 880, q) == "sdpa"
+    assert sf.fused_mask(logits)
+    torch.export.export(Probe(), (torch.zeros(2),))
+    assert seen == {"attention": "plain", "mask": False}
+
+
+def test_fused_mask_route_needs_a_card_float32_and_growth():
+    """segment_mask takes the fused upsample and argmax for logits on a
+    card, and the CPU keeps resize_bilinear + argmax; on a card the kernel
+    raises, rather than fall back, for logits that are not float32 or do
+    not grow at least twofold on both axes (the head's grow fourfold)."""
+    shape = (8, 180, 320, 150)
+    assert sf.fused_mask(_stand_in(True, torch.float32, shape))
+    assert not sf.fused_mask(_stand_in(False, torch.float32, shape))
+    for dtype, h, w in ((torch.bfloat16, 720, 1280),
+                        (torch.float32, 359, 1280),
+                        (torch.float32, 720, 639),
+                        (torch.float32, 180, 320)):
+        with pytest.raises(ValueError):
+            ua.upsample_argmax(_stand_in(True, dtype, shape), h, w)
+
+
+def test_cpu_segment_takes_the_plain_routes(rng, tiny_pair, monkeypatch):
+    """On the CPU a bf16 segment call never reaches the SDPA route or the
+    fused upsample and argmax, and its mask is segment_logits' argmax."""
+    _, net = tiny_pair
+
+    def refuse(*args):
+        raise AssertionError("a card-only route was taken on the CPU")
+
+    monkeypatch.setattr(sf, "sr_attention_sdpa", refuse)
+    monkeypatch.setattr(sf, "upsample_argmax", refuse)
+    x = torch.from_numpy(rng.uniform(size=(1, 32, 48, 3)).astype(np.float32))
+    for half in (False, True):
+        mask = sf.segment_mask(net, x, half=half)
+        want = sf.segment_logits(net, x, half=half).argmax(-1)
+        assert mask.dtype == torch.int32 and torch.equal(mask, want.int())
+    assert torch.equal(ua.upsample_argmax(x, 64, 96),
+                       resize.resize_bilinear(x, 64, 96).argmax(-1).int())
+
+
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
     """Neither CPU nor CUDA: the wrappers raise instead of falling back."""
     x = torch.empty((1, 4, 4, 128), device="meta", dtype=torch.bfloat16)
@@ -199,6 +295,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     q = torch.empty((1, 16, 64), device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         att.sr_attention(q, q, q, 0.125)
+    with pytest.raises(ValueError):
+        ua.upsample_argmax(torch.empty((1, 4, 4, 150), device="meta"), 16, 16)
 
 
 # ---------------------------------------------------------------------------

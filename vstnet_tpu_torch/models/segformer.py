@@ -14,8 +14,11 @@ proj}`, `...mlp.{fc1,dwconv.dwconv,fc2}`, `backbone.norm{s}`,
 
 Two hand-written kernels carry the bf16 route: the spatial-reduction
 attention where the query count is large (ops/attention.py, K4) and the
-MixFFN's depthwise conv + bias + GELU (ops/dwconv.py, K5). The float32
-route runs torch ops with TF32 off.
+MixFFN's depthwise conv + bias + GELU (ops/dwconv.py, K5); the other
+stages' attention runs on PyTorch's flash SDPA on a card
+(ops/attention.py `route`). On a card, both routes take the mask from the
+logits by one more kernel, their upsample and argmax in one pass
+(ops/upsample_argmax.py). The float32 route runs torch ops with TF32 off.
 
 Precision, as in the JAX package: LayerNorm computes in float32 whatever
 the activation dtype (eps 1e-6 for block and stage norms, 1e-5 for the
@@ -39,15 +42,20 @@ from torch import nn
 
 from vstnet_tpu_torch.device import resolve_device
 from vstnet_tpu_torch.ops.attention import (
-    flash_ok,
+    route,
     sr_attention,
     sr_attention_plain,
+    sr_attention_sdpa,
 )
 from vstnet_tpu_torch.ops.dwconv import dwconv3x3_bias_gelu
 from vstnet_tpu_torch.ops.resize import (
     pad_to_multiple,
     resize_bilinear,
     resize_nearest,
+)
+from vstnet_tpu_torch.ops.upsample_argmax import (
+    upsample_argmax,
+    upsample_argmax_plain,
 )
 
 EMBED_DIMS = (64, 128, 320, 512)
@@ -146,8 +154,11 @@ class Attention(nn.Module):
         m = xs.shape[1]
         kv = _linear(xs, self.kv).reshape(b, m, 2, self.num_heads, hd)
         k, v = kv[:, :, 0], kv[:, :, 1]          # (B, M, heads, hd) views
-        if flash_ok(n, m, x.dtype):
+        taken = route(n, m, q)
+        if taken == "k4":
             out = sr_attention(q, k, v, hd ** -0.5)
+        elif taken == "sdpa":
+            out = sr_attention_sdpa(q, k, v, hd ** -0.5)
         else:
             out = sr_attention_plain(q, k, v, hd ** -0.5)
         return _linear(out.reshape(b, n, c), self.proj)
@@ -393,6 +404,16 @@ def _normalize(image, mean=None, std=None):
     return (image.float() - mean) / std
 
 
+def _head_logits(net: SegFormer, image, half: bool):
+    """float32 logits at the head's resolution, a quarter of the image's."""
+    x = _normalize(image, net.pixel_mean, net.pixel_std)
+    with true_f32():
+        if half:
+            x = x.to(torch.bfloat16)
+            net = net.half_copy()
+        return net.head(net.features(x)).float()
+
+
 @torch.no_grad()
 def segment_logits(net: SegFormer, image, half: bool = False):
     """image: NHWC float in [0, 1], H and W multiples of 4 ->
@@ -400,20 +421,26 @@ def segment_logits(net: SegFormer, image, half: bool = False):
 
     half=True runs the backbone and head in bf16 (LayerNorm internals and
     the final logits stay float32)."""
-    x = _normalize(image, net.pixel_mean, net.pixel_std)
-    with true_f32():
-        if half:
-            x = x.to(torch.bfloat16)
-            net = net.half_copy()
-        logits = net.head(net.features(x)).float()
-        return resize_bilinear(logits, image.shape[1], image.shape[2])
+    return resize_bilinear(_head_logits(net, image, half), image.shape[1],
+                           image.shape[2])
+
+
+def fused_mask(logits) -> bool:
+    """Whether segment_mask takes the mask from the kernel: logits on a
+    card, outside a torch.export trace."""
+    return logits.is_cuda and not torch.compiler.is_exporting()
 
 
 @torch.no_grad()
 def segment_mask(net: SegFormer, image, half: bool = False):
-    """argmax class mask (B, H, W) int32."""
-    return segment_logits(net, image, half=half).argmax(dim=-1).to(
-        torch.int32)
+    """argmax class mask (B, H, W) int32: on a CUDA card the logits'
+    upsample and argmax in one kernel (ops/upsample_argmax.py), which
+    never stores the upsampled logits; elsewhere segment_logits' argmax."""
+    h, w = image.shape[1], image.shape[2]
+    logits = _head_logits(net, image, half)
+    if fused_mask(logits):
+        return upsample_argmax(logits, h, w)
+    return upsample_argmax_plain(logits, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Each kernel's launches are counted where it is launched (`count_launch`),
 in a plain int attribute of its wrapper and, by device, in the wrapper's
-`device_launches` counter; `launch_counts` reads all ten by kernel name
+`device_launches` counter; `launch_counts` reads all twelve by name
 (for one device when given one) and `reset_launch_counts` clears them, so
 a run can show which kernels its path went through, and on which card. The counts are disjoint: "coupling" is the CUDA-core K1
 kernel (csrc/coupling.cu) and "coupling_mma" the tensor-core one
@@ -10,7 +10,10 @@ kernel (csrc/coupling.cu) and "coupling_mma" the tensor-core one
 "transition_mma" and "transition_half" / "transition_half_mma" are
 csrc/transition.cu and csrc/transition_mma.cu behind `fused_transition`
 and `fused_transition_half`; "region_moments" and "region_apply" are
-csrc/regions.cu behind the regional cWCT (ops/regions.py).
+csrc/regions.cu behind the regional cWCT (ops/regions.py);
+"attention_sdpa" is the segmenter's attention on PyTorch's flash SDPA where
+K4 ("attention") is not routed (ops/attention.py), and "upsample_argmax"
+csrc/upsample_argmax.cu behind the segmenter's mask (ops/upsample_argmax.py).
 
 `at_least_f32` is the dtype rule of every float32 statistic (cWCT, VGG
 statistics, the matting term, the training losses): bf16 and float32
@@ -40,7 +43,13 @@ def count_launch(fn, attr: str, device) -> None:
 
 def _counters():
     """kernel name -> (wrapper, name of its count attribute)."""
-    from vstnet_tpu_torch.ops import attention, coupling_fused, dwconv, regions
+    from vstnet_tpu_torch.ops import (
+        attention,
+        coupling_fused,
+        dwconv,
+        regions,
+        upsample_argmax,
+    )
 
     return {"coupling": (coupling_fused.fused_coupling, "fma_launches"),
             "coupling_mma": (coupling_fused.fused_coupling, "mma_launches"),
@@ -54,7 +63,10 @@ def _counters():
             "attention": (attention.sr_attention, "launches"),
             "dwconv_gelu": (dwconv.dwconv3x3_bias_gelu, "launches"),
             "region_moments": (regions.region_moments, "launches"),
-            "region_apply": (regions.apply_regions, "launches")}
+            "region_apply": (regions.apply_regions, "launches"),
+            "attention_sdpa": (attention.sr_attention_sdpa, "launches"),
+            "upsample_argmax": (upsample_argmax.upsample_argmax,
+                                "launches")}
 
 
 def launch_counts(device=None) -> dict:

@@ -66,6 +66,8 @@ _SIGNATURES = {
     # is_bf16, stream
     "vst_region_apply": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                          _I, _I, _P],
+    # logits, out, B, h, w, C, H, W, stream
+    "vst_upsample_argmax": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -18,6 +18,19 @@ is contiguous in the input's layout.
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. `sr_attention.launches` counts the kernel
 launches.
+
+Where the model does not route a stage to the kernel (`flash_ok` False:
+fewer than MIN_Q queries), a bf16 CUDA tensor outside a torch.export trace
+takes `sr_attention_sdpa`: PyTorch's scaled_dot_product_attention held to
+its flash backend, which raises where flash cannot run rather than fall
+back to the math path. It reads the (B, N, heads, D) views in place and
+keeps the dtype chain in all but one point: float32 scores, a float32
+(online) softmax, probabilities rounded to bf16 before P.V, float32 sums,
+one rounding at the output; the probabilities it rounds are not yet
+divided by their row's sum, which flash divides out of the float32 sums at
+the end. `sr_attention_sdpa.launches` counts its calls. Everything else
+(the CPU, float32, an exported program) takes the plain version. `route`
+names the choice.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ from __future__ import annotations
 import collections
 
 import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from vstnet_tpu_torch.ops import _build, count_launch
 
@@ -40,6 +55,17 @@ def flash_ok(n: int, m: int, dtype) -> bool:
     """Whether the model routes (N=n queries, M=m keys, dtype) to the
     kernel: bf16 activations, M <= MAX_KV, N >= MIN_Q."""
     return dtype == torch.bfloat16 and m <= MAX_KV and n >= MIN_Q
+
+
+def route(n: int, m: int, q) -> str:
+    """The model's attention for N=n queries, M=m keys and queries q:
+    "k4" (`sr_attention`), "sdpa" (`sr_attention_sdpa`) or "plain"."""
+    if flash_ok(n, m, q.dtype):
+        return "k4"
+    if (q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] == HEAD_DIM
+            and not torch.compiler.is_exporting()):
+        return "sdpa"
+    return "plain"
 
 
 def _as_bnhd(t):
@@ -64,6 +90,22 @@ def sr_attention_plain(q, k, v, scale: float):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     return o.to(q.dtype).reshape(q.shape)
+
+
+def sr_attention_sdpa(q, k, v, scale: float):
+    """sr_attention's layouts and result by PyTorch's flash SDPA: bf16
+    CUDA tensors, D = 64."""
+    q4, k4, v4 = _as_bnhd(q), _as_bnhd(k), _as_bnhd(v)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        o = F.scaled_dot_product_attention(
+            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2),
+            scale=scale)
+    count_launch(sr_attention_sdpa, "launches", q.device)
+    return o.transpose(1, 2).reshape(q.shape)
+
+
+sr_attention_sdpa.launches = 0
+sr_attention_sdpa.device_launches = collections.Counter()
 
 
 def _strides(t4, what):
