@@ -46,7 +46,9 @@ order; any failure raises and the process exits non-zero:
               and of 1024x1024 frames and at one ragged shape, each printed
               with whether it equals its plain version bit for bit; then
               in bf16 at the shapes of the later phases' paths: the tiler
-              (B=4) and the service (B=8), the smoke CLI's photo test
+              (B=4), the service (B=8), the stage-3 plane of 1280x720
+              frames that the video programs run (K1 at 180x320, B=8),
+              the smoke CLI's photo test
               (1024x1024 at B=2: K1, K2, K4 on the model's views, K5) and
               phase 11's GGUF stylizes (512x512 at B=1: K1, K2).
   4. global   StyleModel.random_init -> style factors from one 512x512
@@ -69,7 +71,10 @@ order; any failure raises and the process exits non-zero:
               threshold) and once on 640x360 frames (K3 in place of K2).
   6. timings  each kernel against its plain version (and, for K4, against
               scaled_dot_product_attention) at batch 8 in bf16, beside its
-              bound, with the route each K1 shape took; the CUDA-core K1,
+              bound, with the route each K1 shape took (and, at C=256,
+              how many launches took the warpgroup kernel, also at the
+              tiler's, the smoke photo's, the service buckets' and the
+              video programs' 180x320 C=256 shapes); the CUDA-core K1,
               K2 and K3 kernels in float32, beside PERF.md's PR 4 time
               from before the redesign (F32_EARLIER, not measured here); K2 against K3 with the
               caller's (un)shuffle at the 512x512 and the 640x360 shapes;
@@ -405,6 +410,12 @@ SMOKE_K4 = [("smoke 1024 s1", 1, 65536, 1024), ("smoke 1024 s2", 2, 16384,
                                                 1024)]
 GGUF_B = 1
 SERVE_B = 8
+BUCKET_K1 = [("bucket 960x576 s3", 256, 144, 240),
+             ("bucket 1280x768 s3", 256, 192, 320)]
+# the stage-3 plane of 1280x720 frames, as the video programs (phase 7's
+# CLI at --batch 8) run K1 there: C=256 at 180x320, batch 8
+HD_B = 8
+HD_K1 = [("720p s3", 256, 180, 320)]
 BUCKET_K2 = [("bucket 1280x768 T1", 16, 768, 1280)]
 BUCKET_K3 = [("bucket 960x576 T1", 16, 576, 960),
              ("bucket 960x576 T2", 64, 288, 480),
@@ -780,7 +791,8 @@ def phase_kernels(cf, att, dw, device, gen):
                             dtype=bf) for _ in range(2))
 
     k1 = ([(k, TILE_B) for k in TILE_K1] + [(k, SMOKE_B) for k in TILE_K1]
-          + [(k[:4], GGUF_B) for k in K1_SHAPES[:3]])
+          + [(k[:4], GGUF_B) for k in K1_SHAPES[:3]]
+          + [(k, SERVE_B) for k in BUCKET_K1] + [(k, HD_B) for k in HD_K1])
     for (name, c, h, w), b in k1:
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
@@ -1286,17 +1298,29 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
         return (torch.randn((batch, c, h, w), generator=gen).to(device, bf),
                 torch.randn((batch, c, h, w), generator=gen).to(device, bf))
 
+    def wg_share(run):
+        """run(), and its launches of the C=256 warpgroup kernel out of
+        its tensor-core K1 launches (fused_coupling.wg_launches of
+        .mma_launches), as text."""
+        wg0 = cf.fused_coupling.wg_launches
+        mma0 = cf.fused_coupling.mma_launches
+        out = run()
+        wg = cf.fused_coupling.wg_launches - wg0
+        mma = cf.fused_coupling.mma_launches - mma0
+        return out, f", warpgroup kernel {wg} of {mma} launches"
+
     for name, c, h, w, count in K1_SHAPES:
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
         x1, x2 = pair(c, h, w)
-        tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
-                            lambda: cf.coupling_block_plain(x1, x2, wp))
+        (tk, tp), wg = wg_share(lambda: _time_pair(
+            lambda: cf.fused_coupling(x1, x2, wp),
+            lambda: cf.coupling_block_plain(x1, x2, wp)))
         bound = bound_coupling(batch, c, h, w)
         route = cf.coupling_route(bf, c, c // 4)
         key = "coupling_mma" if route == "mma" else "coupling"
-        _line(key, name, f"C={c} {h}x{w} B={batch} route {route}", tk, tp,
-              bound)
+        _line(key, name, f"C={c} {h}x{w} B={batch} route {route}{wg}", tk,
+              tp, bound)
         tally(key, count, tk, tp, bound)
         # the float32 route: the CUDA-core kernel, TF32 off on both sides
         wp = cf.pack_coupling_weights(
@@ -1367,18 +1391,20 @@ def phase_timings(cf, att, dw, device, gen, batch=8):
             print(f"time entries {name} C={c} {h}x{w} B={batch} bf16: "
                   f"forward K2 {f2:.3f} ms, K3 + unshuffle {f3:.3f} ms; "
                   f"inverse K2 {i2:.3f} ms, K3 + shuffle {i3:.3f} ms")
-    # the tiler's, the smoke CLI's photo test's and the service's shapes,
-    # bf16
+    # the tiler's, the smoke CLI's photo test's, the service's and the
+    # video programs' stage-3 shapes, bf16
     for (name, c, h, w), b in ([(k, TILE_B) for k in TILE_K1]
-                               + [(k, SMOKE_B) for k in TILE_K1]):
+                               + [(k, SMOKE_B) for k in TILE_K1]
+                               + [(k, SERVE_B) for k in BUCKET_K1]
+                               + [(k, HD_B) for k in HD_K1]):
         wp = cf.pack_coupling_weights(
             _rand_branch(gen, c, c // 4, c, device), bf)
         x1, x2 = (torch.randn((b, c, h, w), generator=gen).to(device, bf)
                   for _ in range(2))
-        tk, tp = _time_pair(lambda: cf.fused_coupling(x1, x2, wp),
-                            lambda: cf.coupling_block_plain(x1, x2, wp),
-                            iters=5)
-        _line("coupling_mma", name, f"C={c} {h}x{w} B={b}", tk, tp,
+        (tk, tp), wg = wg_share(lambda: _time_pair(
+            lambda: cf.fused_coupling(x1, x2, wp),
+            lambda: cf.coupling_block_plain(x1, x2, wp), iters=5))
+        _line("coupling_mma", name, f"C={c} {h}x{w} B={b}{wg}", tk, tp,
               bound_coupling(b, c, h, w))
     for (name, c, h, w), b, half in ([(k, TILE_B, False) for k in TILE_K2]
                                      + [(k, SMOKE_B, False)
@@ -2125,6 +2151,10 @@ CLI_BATCH = 8
 CLI_PER_BATCH = {"1280x720": {"coupling_mma": 60, "transition_mma": 2,
                               "transition_half_mma": 2},
                  "640x360": {"coupling_mma": 60, "transition_half_mma": 4}}
+# of the 60, the C=256 blocks' (9 stage-3 and 2 reduction blocks an encode
+# and a decode), every one on the warpgroup kernel
+# (fused_coupling.wg_launches)
+CLI_WG_PER_BATCH = 22
 
 
 class _CliProbe:
@@ -2169,14 +2199,19 @@ class _CliProbe:
             fn = factory(*fa, **fkw)
 
             def run(*args):
+                from vstnet_tpu_torch.ops.coupling_fused import (
+                    fused_coupling)
+
                 before = self.ops.launch_counts()
+                wg = fused_coupling.wg_launches
                 out = fn(*args)
                 after = self.ops.launch_counts()
                 self.calls.append({
                     "factory": factory, "make": (fa, fkw), "args": args,
                     "masked": masked, "frames": args[5 if masked else 1],
                     "launches": {k: v - before[k] for k, v in after.items()
-                                 if v != before[k]}})
+                                 if v != before[k]},
+                    "wg": fused_coupling.wg_launches - wg})
                 return out
             return run
         return make
@@ -2266,6 +2301,10 @@ def _check_video_calls(ops, probe, clip, size, written, seg_calls=None):
         if call["launches"] != want_call:
             raise AssertionError(f"{clip} batch at {lo}: launches "
                                  f"{call['launches']}, want {want_call}")
+        if call["wg"] != CLI_WG_PER_BATCH:
+            raise AssertionError(f"{clip} batch at {lo}: {call['wg']} "
+                                 f"launches of the C=256 warpgroup kernel, "
+                                 f"want {CLI_WG_PER_BATCH}")
         fa, fkw = call["make"]
         again = call["factory"](*fa, **fkw)(*call["args"])
         frames = again[0] if masked else again
@@ -2546,6 +2585,8 @@ ULTRA_GATE = 55.0
 # half-res widths 512 and 256), pass 2 encodes and decodes
 ULTRA_PER_CHUNK = {1: {"coupling_mma": 30, "transition_mma": 2},
                    2: {"coupling_mma": 60, "transition_mma": 4}}
+# of those, the C=256 blocks' on the warpgroup kernel (11 an encode)
+ULTRA_WG_PER_CHUNK = {1: 11, 2: 22}
 # launches of one style encode at 1024x576 (half-res widths 512 and 256)
 ULTRA_STYLE_ENCODE = {"coupling_mma": 30, "transition_mma": 2}
 # one bf16 segment call at 1024x576 (the 4K content capped at 1024 a side,
@@ -2579,9 +2620,12 @@ class _UltraProbe:
 
     def _wrap(self, fn, pass_no):
         def run(*args, **kw):
+            from vstnet_tpu_torch.ops.coupling_fused import fused_coupling
+
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             before = self.ops.launch_counts()
+            wg = fused_coupling.wg_launches
             start.record()
             out = fn(*args, **kw)
             end.record()
@@ -2590,7 +2634,8 @@ class _UltraProbe:
                 "pass": pass_no, "masked": fn.__name__.endswith("_masked"),
                 "events": (start, end),
                 "launches": {k: v - before[k] for k, v in after.items()
-                             if v != before[k]}})
+                             if v != before[k]},
+                "wg": fused_coupling.wg_launches - wg})
             return out
         return run
 
@@ -2615,6 +2660,12 @@ class _UltraProbe:
                 raise AssertionError(f"ultra {what}: a pass-{c['pass']} "
                                      f"batch launched {c['launches']}, "
                                      f"want {want}")
+            want_wg = ULTRA_WG_PER_CHUNK[c["pass"]] if fast else 0
+            if c["wg"] != want_wg:
+                raise AssertionError(f"ultra {what}: a pass-{c['pass']} "
+                                     f"batch launched the C=256 warpgroup "
+                                     f"kernel {c['wg']} times, want "
+                                     f"{want_wg}")
         return n
 
     def __exit__(self, *exc):
@@ -3635,7 +3686,8 @@ GGUF_LAUNCHES = {"coupling": 0, "coupling_mma": 90, "transition": 0,
 # the smoke photo path at 1024x1024 (fast route: bf16 segmenter, fused
 # encode and decode) launches K1, K2, K4 and K5; the profiler names each
 # by its __global__ function, templates with their arguments after it
-TRACE_KERNELS = {"K1": ("coupling_mma_kernel", "coupling_mma_narrow_kernel"),
+TRACE_KERNELS = {"K1": ("coupling_mma_kernel", "coupling_mma_narrow_kernel",
+                        "coupling_mma_wg_kernel"),
                  "K2": ("transition_mma_kernel",),
                  "K4": ("attention_kernel",),
                  "K5": ("dwconv_gelu_kernel",)}

@@ -14,7 +14,11 @@ forward and inverse, at its two (T1 C=16 512x512, T2 C=64 256x256), all in
 bf16 at batch 8; checks each output against the plain version and prints
 the kernel's time (CUDA events, with the recording off) and the mean cycles
 per phase over all warps of all blocks. Cycles are the SM clock's; the
-phases of a warp include the time it waits at the block's barriers.
+phases of a warp include the time it waits at the block's barriers. At
+C=256 (the warpgroup kernel) the consumers' phases (conv1, h1's store,
+conv2, conv3, the epilogue, and their waits for data) and the producer
+warps' (the weight ring's and x2's staging, with their waits) are
+reported apart.
 
 K5 (csrc/dwconv.cu) at the four MixFFN shapes of 512x512 frames: its blocks
 are persistent, so it reports per block the wait for the first tile, the
@@ -43,12 +47,21 @@ from vstnet_tpu_torch.ops.coupling import pixel_unshuffle  # noqa: E402
 
 WIDE = ("stage first x chunk", "conv1 (stages the other chunks)",
         "store h1", "conv2 + store h2", "conv3 + output")
+# C=256 (coupling_mma_wg_kernel): warps 0-11 consume, 12 streams the
+# weights, 13-15 stage x2's window. A consumer's ticks 1-4 close conv1's
+# products, h1's store, conv2 with h2's store and conv3 with the epilogue;
+# 5, 6 and 7 are the cycles it waited for data, spent in the epilogue and,
+# of those, waited for x1. The weight warp's 1 closes the issue of the
+# last piece and 2 is its cycles waited for room; a staging warp's 1
+# closes the window's last chunk and 2 is its cycles waited for copies
+# and for room
+WG = "wg"
 NARROW = ("stage x window, load weights", "conv1 + store h1",
           "conv2 + store h2", "conv3 + output")
 TRANSITION = ("stage first x chunk (with its pass-through)",
               "conv1 (stages the other chunks)", "store h1",
               "conv2 + store h2", "conv3 + output")
-K1_SHAPES = ((256, 128, WIDE), (64, 256, WIDE), (16, 512, NARROW))
+K1_SHAPES = ((256, 128, WG), (64, 256, WIDE), (16, 512, NARROW))
 K2_SHAPES = (("T1", 16, 512), ("T2", 64, 256))
 K5_SHAPES = ((256, 128), (512, 64), (1280, 32), (2048, 16))
 BATCH = 8
@@ -65,9 +78,10 @@ def _branch(gen, dev, widths):
         for ci, co in widths)
 
 
-def _report(label, run, plain, set_ticks, launches, hw, phases):
+def _record(label, run, plain, set_ticks, launches, hw):
     """Time run(), then one launch of it with the recording on; `launches`
-    reads the count of the tensor-core kernel that run() must take."""
+    reads the count of the tensor-core kernel that run() must take.
+    Returns (ms, the ticks of the blocks that wrote, max abs err)."""
     dev = torch.device("cuda:0")
     for _ in range(3):
         run()
@@ -91,8 +105,12 @@ def _report(label, run, plain, set_ticks, launches, hw, phases):
     if launches() != before + 1:
         sys.exit(f"{label}: not routed to the tensor-core kernel")
     err = float((out.float() - plain().float()).abs().max())
+    return ms, ticks[ticks[:, 0, 1] >= 0], err
+
+
+def _report(label, run, plain, set_ticks, launches, hw, phases):
+    ms, used, err = _record(label, run, plain, set_ticks, launches, hw)
     last = len(phases)
-    used = ticks[ticks[:, 0, last] >= 0]
     warps = int((used[0, :, last] >= 0).sum())
     mean = used[:, :warps, :last + 1].double().mean(dim=(0, 1)).tolist()
     print(f"{label} B={BATCH} bf16: {ms:.3f} ms, {used.shape[0]} blocks of "
@@ -101,6 +119,34 @@ def _report(label, run, plain, set_ticks, launches, hw, phases):
     for name, t0, t1 in zip(phases, mean[:-1], mean[1:]):
         print(f"  {name}: {t1 - t0:.0f} cycles "
               f"({100 * (t1 - t0) / mean[last]:.1f} %)")
+
+
+def _report_wg(label, run, plain, set_ticks, launches, hw):
+    """coupling_mma_wg_kernel: the consumers' phases (mean over warps 0-11
+    of all blocks) and the producer's (warps 12-15)."""
+    ms, used, err = _record(label, run, plain, set_ticks, launches, hw)
+    cons = used[:, :12, :8].double().mean(dim=(0, 1)).tolist()
+    wring = used[:, 12, :3].double().mean(dim=0).tolist()
+    stage = used[:, 13:, :3].double().mean(dim=(0, 1)).tolist()
+    total = cons[4]
+    print(f"{label} B={BATCH} bf16: {ms:.3f} ms, {used.shape[0]} blocks of "
+          f"16 warps, {total:.0f} cycles a block (consumers), max abs err vs "
+          f"plain {err:.3e}")
+    conv3 = cons[4] - cons[3] - cons[6]
+    for name, cyc in (("conv1's products", cons[1]),
+                      ("store h1", cons[2] - cons[1]),
+                      ("conv2 + store h2", cons[3] - cons[2]),
+                      ("conv3's products", conv3),
+                      ("epilogue (x1 read, out written)", cons[6]),
+                      ("  of which waited for x1", cons[7])):
+        print(f"  {name}: {cyc:.0f} cycles ({100 * cyc / total:.1f} %)")
+    print(f"  consumers waited for x2 chunks and weight pieces: "
+          f"{cons[5]:.0f} cycles ({100 * cons[5] / total:.1f} %, inside "
+          f"the phases above)")
+    print(f"  producer: last weight piece issued after {wring[1]:.0f} "
+          f"cycles (waited for room {wring[2]:.0f}); x2's window staged "
+          f"after {stage[1]:.0f} (waited for copies and room "
+          f"{stage[2]:.0f})")
 
 
 def _report_k5(lib, dev, gen):
@@ -174,11 +220,15 @@ def main():
         wp = cf.pack_coupling_weights(
             _branch(gen, dev, ((c, m), (m, m), (m, c))), bf)
         x1, x2 = pair(c, hw)
-        _report(f"K1 C={c} {hw}x{hw}",
+        args = (f"K1 C={c} {hw}x{hw}",
                 lambda: cf.fused_coupling(x1, x2, wp),
                 lambda: cf.coupling_block_plain(x1, x2, wp),
-                lib.vst_coupling_mma_set_ticks,
-                lambda: cf.fused_coupling.mma_launches, hw, phases)
+                lib.vst_coupling_mma_set_ticks)
+        if phases == WG:
+            _report_wg(*args, lambda: cf.fused_coupling.wg_launches, hw)
+        else:
+            _report(*args, lambda: cf.fused_coupling.mma_launches, hw,
+                    phases)
 
     for name, c, hw in K2_SHAPES:
         wp = cf.pack_transition_weights(

@@ -85,17 +85,24 @@ def _err(a, b):
                                    (256, 16, 12), (16, 2, 34),
                                    (256, 20, 36), (256, 7, 45), (64, 40, 36),
                                    (64, 2, 2), (64, 33, 5), (16, 70, 33),
-                                   (16, 5, 100), (32, 20, 24)])
+                                   (16, 5, 100), (32, 20, 24),
+                                   (256, 180, 320), (256, 256, 256),
+                                   (256, 24, 72), (256, 2, 40),
+                                   (256, 10, 24)])
 def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
     """Both K1 routes (bf16 at C=256, C=64 and C=16 is a tensor-core kernel;
     float32 and C=32 the CUDA-core one) at sizes with tails and with H or W
-    below the tile."""
+    below the tile. At C=256 the 720p stage-3 plane, a 4K tile's, a width
+    no 32-column tile divides, H=2, and both sides below the 12x32 tile of
+    the warpgroup kernel, whose own count rises with every C=256 bf16
+    launch and with no other."""
     wp = cf.pack_coupling_weights(_weights(gen, c, c // 4, c, dev), dt)
     x1 = torch.randn((2, c, h, w), device=dev).to(dt)
     x2 = torch.randn((2, c, h, w), device=dev).to(dt)
     before = cf.coupling_launches()
     mma_before = cf.fused_coupling.mma_launches
     fma_before = cf.fused_coupling.fma_launches
+    wg_before = cf.fused_coupling.wg_launches
     for inverse in (False, True):
         got = cf.fused_coupling(x1, x2, wp, inverse)
         ref = cf.coupling_block_plain(x1, x2, wp, inverse)
@@ -105,6 +112,8 @@ def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
     assert (cf.fused_coupling.mma_launches - mma_before,
             cf.fused_coupling.fma_launches - fma_before) == (
                 (2, 0) if mma else (0, 2))
+    assert cf.fused_coupling.wg_launches - wg_before == (
+        2 if mma and (c, c // 4) == cf.MMA_WG else 0)
     if dt == torch.float32:
         y = cf.fused_coupling(x1, x2, wp)
         back = cf.fused_coupling(y, x2, wp, inverse=True)
@@ -112,7 +121,10 @@ def test_coupling_kernel_matches_plain(dev, gen, dt, c, h, w):
 
 
 @pytest.mark.parametrize("c,h,w", [(256, 20, 36), (64, 40, 36), (64, 9, 50),
-                                   (16, 70, 33), (16, 32, 64)])
+                                   (16, 70, 33), (16, 32, 64),
+                                   (256, 180, 320), (256, 256, 256),
+                                   (256, 24, 72), (256, 2, 40),
+                                   (256, 10, 24)])
 def test_coupling_mma_forward_then_inverse(dev, gen, c, h, w):
     """The tensor-core route in bf16: inverse(forward(x1)) against x1. The
     inverse recomputes F bit for bit, so only the roundings of y and of

@@ -289,7 +289,9 @@ def _bf16_branch(rng, c, m):
 @pytest.mark.parametrize("c,m", [(256, 64), (64, 16)])
 def test_coupling_mma_pack_holds_the_plain_weights(rng, c, m):
     """pack_coupling_mma's bf16 pieces hold exactly the values of _pack's
-    "w", in [co chunk][ci chunk][tap][ci][co] order."""
+    "w": at C=64 in [co chunk][ci chunk][tap][ci][co] order, at C=256 (the
+    warpgroup kernel) as wgmma's B, [co chunk][ci chunk][tap][co / 8]
+    [ci / 8][co % 8][ci % 8] with 16 ci a chunk."""
     wp = cf.pack_coupling_weights(_torch_weights(_branch_np(rng, c, m, c)),
                                   torch.bfloat16)
     pieces = wp["mma"]
@@ -299,13 +301,24 @@ def test_coupling_mma_pack_holds_the_plain_weights(rng, c, m):
     for got, (want, _) in zip(unpacked, wp["w"]):
         assert got.shape == want.shape
         assert bool((got == want).all())
+    w1, w3 = wp["w"][0][0], wp["w"][2][0]
+    if c == 256:
+        # conv1, second input chunk of 16, tap (1, 2), ci 3 of the chunk,
+        # co 13 (core matrix [1][0], row 5, column 3)
+        p1 = pieces[: 9 * c * m].float().reshape(c // 16, 9, 8, 2, 8, 8)
+        assert float(p1[1, 5, 1, 0, 5, 3]) == float(w1[13, 16 + 3, 1, 2])
+        # conv3, last output chunk of 64, last input chunk, tap (2, 1), ci
+        # 10 of the chunk, co 9 of the output chunk
+        p3 = pieces[9 * m * (c + m):].float().reshape(c // 64, m // 16, 9, 8,
+                                                      2, 8, 8)
+        assert float(p3[-1, -1, 7, 1, 1, 1, 2]) == float(
+            w3[c - 64 + 9, m - 16 + 10, 2, 1])
+        return
     # conv1, second input chunk of 32, tap (1, 2), ci 3 of the chunk, co 5
-    w1 = wp["w"][0][0]
     p1 = pieces[: 9 * c * m].float().reshape(c // 32, 9, 32, m)
     assert float(p1[1, 5, 3, 5]) == float(w1[5, 32 + 3, 1, 2])
     # conv3, last output chunk of 64, last input chunk
     kc = min(32, m)
-    w3 = wp["w"][2][0]
     p3 = pieces[9 * m * (c + m):].float().reshape(c // 64, m // kc, 9, kc, 64)
     assert float(p3[-1, -1, 7, 2, 9]) == float(
         w3[c - 64 + 9, m - kc + 2, 2, 1])
@@ -314,6 +327,32 @@ def test_coupling_mma_pack_holds_the_plain_weights(rng, c, m):
         _torch_weights(_branch_np(rng, c, m, c)))
     assert "mma" not in cf.pack_coupling_weights(
         _torch_weights(_branch_np(rng, 128, 32, 128)), torch.bfloat16)
+
+
+@pytest.mark.parametrize("conv", [0, 1, 2])
+def test_coupling_mma_wg_pack_is_wgmma_b(rng, conv):
+    """At C=256/M=64 every weight lies where coupling_mma_wg_kernel's
+    descriptors read it: conv `conv`'s segment is a sequence of pieces
+    (co chunk of 64, ci chunk of 16), each nine k-blocks (tap ky * 3 + kx)
+    of K-major 8 x 8 core matrices, 128 contiguous bytes each, core
+    matrix (co / 8, ci / 8) of the k-block at (co / 8) * 2 + ci / 8, row
+    co % 8, column ci % 8 (csrc/wgmma.cuh). The index is computed here
+    element by element, apart from the packing's own reshapes."""
+    c, m = cf.MMA_WG
+    wp = cf.pack_coupling_weights(_torch_weights(_branch_np(rng, c, m, c)),
+                                  torch.bfloat16)
+    pieces = wp["mma"].float()
+    cout, cin = ((m, c), (m, m), (c, m))[conv]
+    start = 9 * m * (0, c, c + m)[conv]
+    w = wp["w"][conv][0]
+    co, ci, ky, kx = (t.reshape(-1) for t in torch.meshgrid(
+        *(torch.arange(n) for n in w.shape), indexing="ij"))
+    piece = (co // 64) * (cin // 16) + ci // 16
+    block = piece * 9 + ky * 3 + kx
+    core = (co % 64 // 8) * 2 + ci % 16 // 8
+    idx = start + ((block * 16 + core) * 8 + co % 8) * 8 + ci % 8
+    assert sorted(idx.tolist()) == list(range(start, start + w.numel()))
+    assert torch.equal(pieces[idx], w[co, ci, ky, kx])
 
 
 def test_coupling_mma_narrow_pack_holds_the_plain_weights(rng):

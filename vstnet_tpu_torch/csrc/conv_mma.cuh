@@ -26,6 +26,15 @@
   int vst_nk = 0;         \
   VST_TICK()
 #define VST_TICK() (vst_tk[vst_nk++] = clock64())
+// a count of cycles (not a stamp), written as it is
+#define VST_TICK_VALUE(v) (vst_tk[vst_nk++] = vst_tk[0] + (v))
+// stmt, its cycles added to `acc`
+#define VST_TIMED(acc, stmt)        \
+  do {                              \
+    const long long vst_t0 = clock64(); \
+    stmt;                           \
+    (acc) += clock64() - vst_t0;    \
+  } while (0)
 #define VST_TICKS_END(buf)                                                  \
   if ((buf) != nullptr && (threadIdx.x & 31) == 0) {                        \
     const size_t blk =                                                      \
@@ -38,6 +47,8 @@
 #else
 #define VST_TICKS_BEGIN()
 #define VST_TICK()
+#define VST_TICK_VALUE(v)
+#define VST_TIMED(acc, stmt) stmt
 #define VST_TICKS_END(buf)
 #endif
 

@@ -47,12 +47,11 @@
 // but 4-warp blocks stall on their dependency chains), 64-channel slabs
 // at every width, 16-row tiles staged by cp.async, three or four blocks an
 // SM, a prefetched tensor map.
-#include <cuda.h>
-
 #include <atomic>
 
 #include "common.cuh"
 #include "conv_mma.cuh"
+#include "tensor_map.cuh"
 
 #ifdef VST_PHASE_TICKS
 __device__ long long* vst_dw_ticks = nullptr;  // see conv_mma.cuh
@@ -82,24 +81,6 @@ __device__ __forceinline__ void widen4(uint2 raw, float (&f)[4]) {
   f[1] = a.y;
   f[2] = b.x;
   f[3] = b.y;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1; m and s
@@ -145,16 +126,7 @@ __device__ __forceinline__ DwTile dw_tile(unsigned t, const FastDiv& slabs,
 template <int TW>
 __device__ __forceinline__ void dw_load(const CUtensorMap& map, uint32_t dst,
                                         uint32_t bar, const DwTile& t) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(DwCfg<TW>::kBytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(t.c0), "r"(t.x0), "r"(t.y0),
-      "r"(t.b), "r"(bar)
-      : "memory");
+  tensor_load_4d(dst, &map, t.c0, t.x0, t.y0, t.b, DwCfg<TW>::kBytes, bar);
 }
 
 __device__ __forceinline__ void dw_taps(const float* __restrict__ w,
@@ -248,9 +220,9 @@ __global__ void __launch_bounds__(DwCfg<TW>::kThreads, kDwMinBlocks)
   const uint32_t buf0 = smem_u32(tile[0]), buf1 = smem_u32(tile[1]);
   const int step = gridDim.x;
   if (threadIdx.x == 0) {
-    mbar_init(bar0);
-    mbar_init(bar1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_count(bar0, 1);
+    mbar_init_count(bar1, 1);
+    mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0)
@@ -271,7 +243,7 @@ __global__ void __launch_bounds__(DwCfg<TW>::kThreads, kDwMinBlocks)
 #ifdef VST_PHASE_TICKS
     const long long w0 = clock64();
 #endif
-    mbar_wait(s ? bar1 : bar0, (n >> 1) & 1);
+    mbar_wait_parity(s ? bar1 : bar0, (n >> 1) & 1);
 #ifdef VST_PHASE_TICKS
     if (n == 0) {
       VST_TICK();                            // 1: first tile staged
@@ -298,34 +270,6 @@ __global__ void __launch_bounds__(DwCfg<TW>::kThreads, kDwMinBlocks)
   vst_tk[vst_nk++] = vst_tk[0] + n;          // 5: tiles of this block
 #endif
   VST_TICKS_END(vst_dw_ticks);
-}
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled's address is one for the process, whatever the
-// device: it is looked up once, and C++ initialises a function-local static
-// once even when two host threads make the first launch together.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
 }
 
 constexpr int kMaxDevices = 64;

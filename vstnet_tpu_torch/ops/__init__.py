@@ -81,7 +81,12 @@ def launch_counts(device=None) -> dict:
 
 
 def reset_launch_counts() -> None:
+    from vstnet_tpu_torch.ops import coupling_fused
+
     with _COUNT_LOCK:
         for fn, attr in _counters().values():
             setattr(fn, attr, 0)
             fn.device_launches.clear()
+        # the share of "coupling_mma" at C=256 (csrc/coupling_mma.cu:
+        # coupling_mma_wg_kernel), not a kernel count of its own
+        coupling_fused.fused_coupling.wg_launches = 0

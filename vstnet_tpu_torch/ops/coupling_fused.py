@@ -27,7 +27,9 @@ Each kernel's launches are counted in a plain int attribute of its wrapper,
 raised where that kernel is launched and nowhere else: K1's two kernels
 apart (`fused_coupling.fma_launches` for `csrc/coupling.cu`,
 `fused_coupling.mma_launches` for `csrc/coupling_mma.cu`;
-`coupling_launches()` is their sum), and the same pair of attributes on
+`coupling_launches()` is their sum; of the latter, `fused_coupling.
+wg_launches` counts those at C=256/M=64, which run on the warpgroup
+products, `coupling_mma_wg_kernel`), and the same pair of attributes on
 `fused_transition` and on `fused_transition_half` for `csrc/transition.cu`
 and `csrc/transition_mma.cu`.
 """
@@ -63,15 +65,20 @@ def _pack(weights, dtype):
             "cin": w1.shape[1], "mid": w1.shape[0], "cout": w3.shape[0]}
 
 
-# (C, M) widths the tensor-core coupling kernels are built for; the piece
-# sizes of the two wide ones: input channels per piece of conv1, of conv2
-# and conv3, output channels per piece of conv3 (csrc/coupling_mma.cu:
-# MmaCfg); and the narrow width, whose weights are packed as fragments
+# (C, M) widths the tensor-core coupling kernels are built for. C=64/M=16
+# runs on coupling_mma_kernel (mma.sync) with pieces of _MMA_KC1 input
+# channels of conv1, of at most _MMA_KC of conv2 and conv3, and of
+# _MMA_NC3 output channels of conv3 (csrc/coupling_mma.cu: MmaCfg); the
+# narrow width, whose weights are packed as fragments; and the widest,
+# which runs on the warpgroup products (coupling_mma_wg_kernel) with
+# pieces of 16 input channels (_WG_KC) laid out as wgmma's B operand
 MMA_WIDTHS = ((256, 64), (64, 16), (16, 4))
 MMA_NARROW = (16, 4)
+MMA_WG = (256, 64)
 _MMA_KC1 = 32
 _MMA_KC = 32
 _MMA_NC3 = 64
+_WG_KC = 16
 
 
 def coupling_route(dtype, c: int, m: int) -> str:
@@ -103,6 +110,8 @@ def transition_route(dtype, c: int, m: int) -> str:
 
 def _mma_piece_shapes(c: int, m: int):
     """(ci per piece, co per piece) of conv1, conv2, conv3."""
+    if (c, m) == MMA_WG:
+        return (_WG_KC, m), (_WG_KC, m), (_WG_KC, _MMA_NC3)
     kc = min(_MMA_KC, m)
     return (_MMA_KC1, m), (kc, m), (kc, _MMA_NC3)
 
@@ -117,6 +126,25 @@ def _to_pieces(w, kc: int, nc: int):
 def _from_pieces(flat, cout: int, cin: int, kc: int, nc: int):
     """Inverse of _to_pieces: flat -> OIHW (Cout, Cin, 3, 3)."""
     t = flat.reshape(cout // nc, cin // kc, 9, kc, nc).permute(2, 1, 3, 0, 4)
+    return t.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def _to_wg_pieces(w, kc: int, nc: int):
+    """OIHW -> coupling_mma_wg_kernel's pieces, flat: [co chunk][ci chunk]
+    [tap][k-step of 16 ci][co / 8][ci / 8 of the k-step][co % 8][ci % 8].
+    A (tap, k-step) is one k-block of wgmma's B, K-major core matrices of
+    8 output x 8 input channels, 128 contiguous bytes each
+    (csrc/wgmma.cuh)."""
+    cout, cin = w.shape[:2]
+    t = w.permute(2, 3, 1, 0).reshape(9, cin // kc, kc // 16, 2, 8,
+                                      cout // nc, nc // 8, 8)
+    return t.permute(5, 1, 0, 2, 6, 3, 7, 4).reshape(-1)
+
+
+def _from_wg_pieces(flat, cout: int, cin: int, kc: int, nc: int):
+    """Inverse of _to_wg_pieces: flat -> OIHW (Cout, Cin, 3, 3)."""
+    t = flat.reshape(cout // nc, cin // kc, 9, kc // 16, nc // 8, 2, 8, 8)
+    t = t.permute(2, 1, 3, 5, 7, 0, 4, 6)
     return t.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
@@ -160,16 +188,19 @@ def pack_coupling_mma(rounded):
     channels, in the order the kernel streams them (conv1 by input chunk;
     conv2 by input chunk; conv3 by output chunk, then input chunk). At the
     narrow width: every conv's zero-padded B matrix as per-lane fragments.
-    `rounded` holds bf16-rounded values as float32 (_pack's "w"), so the
-    bf16 copy is exact."""
+    At MMA_WG the same pieces, each as wgmma's B (_to_wg_pieces). `rounded`
+    holds bf16-rounded values as float32 (_pack's "w"), so the bf16 copy is
+    exact."""
     (w1, _), (w2, _), (w3, _) = rounded
-    if (w1.shape[1], w1.shape[0]) == MMA_NARROW:
+    width = (w1.shape[1], w1.shape[0])
+    if width == MMA_NARROW:
         return torch.cat([
             _to_fragments(_narrow_matrix(w, *pads))
             for w, pads in zip((w1, w2, w3), _NARROW_PADS)]).to(
                 torch.bfloat16).contiguous()
-    shapes = _mma_piece_shapes(w1.shape[1], w1.shape[0])
-    return torch.cat([_to_pieces(w, kc, nc) for w, (kc, nc)
+    to_pieces = _to_wg_pieces if width == MMA_WG else _to_pieces
+    shapes = _mma_piece_shapes(*width)
+    return torch.cat([to_pieces(w, kc, nc) for w, (kc, nc)
                       in zip((w1, w2, w3), shapes)]).to(
                           torch.bfloat16).contiguous()
 
@@ -185,10 +216,11 @@ def unpack_coupling_mma(pieces, c: int, m: int):
             out.append(_from_narrow_matrix(b, cout, cin, ci_pad))
             at += k * co_pad
         return tuple(out)
+    from_pieces = _from_wg_pieces if (c, m) == MMA_WG else _from_pieces
     for (cout, cin), (kc, nc) in zip(((m, c), (m, m), (c, m)),
                                      _mma_piece_shapes(c, m)):
         n = cout * cin * 9
-        out.append(_from_pieces(pieces[at:at + n].float(), cout, cin, kc, nc))
+        out.append(from_pieces(pieces[at:at + n].float(), cout, cin, kc, nc))
         at += n
     return tuple(out)
 
@@ -371,6 +403,8 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
                 out.data_ptr(), b, c, m, h, wd, int(inverse), stream)
             _build.check(err, "fused_coupling (tensor cores)")
             count_launch(fused_coupling, "mma_launches", x1.device)
+            if (c, m) == MMA_WG:
+                count_launch(fused_coupling, "wg_launches", x1.device)
         else:
             err = lib.vst_coupling(
                 x1.data_ptr(), x2.data_ptr(), w["flat"].data_ptr(),
@@ -383,6 +417,7 @@ def fused_coupling(x1, x2, w, inverse: bool = False):
 
 fused_coupling.fma_launches = 0
 fused_coupling.mma_launches = 0
+fused_coupling.wg_launches = 0
 fused_coupling.device_launches = collections.Counter()
 
 
@@ -490,3 +525,4 @@ def reset_launches() -> None:
         fn.fma_launches = 0
         fn.mma_launches = 0
         fn.device_launches.clear()
+    fused_coupling.wg_launches = 0
